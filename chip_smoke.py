@@ -10,8 +10,10 @@ the JAX package. Phases, each of which raises on failure:
 3. kernels against their plain PyTorch versions, on the card: the
    check_kernel_parity fixture (near-empty, saturating and never-saturating
    tiles) and packed tensors from a real 1280x720 binning at K=256 and
-   K=1024; forward max abs <= 2e-5, counts-bounded sweep bit-identical,
-   backward max|d| / max|g| <= 5e-5; kernel and plain times;
+   K=1024; forward and tstart max abs <= 2e-5 with the same chunks reached,
+   counts-bounded sweep bit-identical, backward max|d| / max|g| <= 5e-5 fed
+   by the plain forward's checkpoints and by the kernel's own; kernel and
+   plain times;
 4. full width: train_step on bench.py's workload (2^19 capacity, 400K alive,
    1280x720, SH degree 3, 8 ring views, no random background, K=256), ms/step
    from CUDA events after a warm-up, finite loss;
@@ -19,9 +21,10 @@ the JAX package. Phases, each of which raises on failure:
    (the refine must change the gaussian count), then .ply/.spz written,
    reloaded and counted.
 
-The launch counters are zeroed just before phase 4 and read after phase 5;
-both kernels must have launched there. The line before the last is the
-{"kernels": [...]} record; the last line is {"ok": true, "device": {...}}.
+The launch counters are zeroed just before each of the two main paths
+(phases 4 and 5) and read just after it; both kernels must have launched in
+each. The line before the last is the {"kernels": [...]} record, with phase
+4's launches; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import sys
 import time
 
 import numpy as np
+
+from tpu_splat_torch.testing import build_packed, ring_viewmats, synthetic_capture
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -63,57 +68,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_packed(rng, t_total, k, width_tiles, tile_size=16):
-    """Packed (16, T, K) tensor with mixed regimes per tile (numpy copy of
-    scripts/check_kernel_parity.build_packed): tile 1 near-empty, tile 2
-    saturating, tile 3 never saturating, the rest mid-opacity."""
-    feat = np.zeros((16, t_total, k), np.float32)
-    counts = []
-    for t in range(t_total):
-        tx0 = (t % width_tiles) * tile_size
-        ty0 = (t // width_tiles) * tile_size
-        n_g = 4 if t == 1 else k
-        mx = tx0 + rng.uniform(-2, tile_size + 2, n_g)
-        my = ty0 + rng.uniform(-2, tile_size + 2, n_g)
-        if t == 2:
-            op = rng.uniform(0.9, 0.999, n_g)
-            scale = rng.uniform(1.5, 2.5, n_g)
-        elif t == 3:
-            op = rng.uniform(0.002, 0.01, n_g)
-            scale = rng.uniform(2.0, 6.0, n_g)
-        else:
-            op = rng.uniform(0.05, 0.9, n_g)
-            scale = rng.uniform(1.0, 6.0, n_g)
-        ca = 1.0 / scale**2
-        cc = 1.0 / (scale * rng.uniform(0.5, 1.5, n_g)) ** 2
-        cb = rng.uniform(-0.2, 0.2, n_g) * np.sqrt(ca * cc)
-        feat[0, t, :n_g] = mx
-        feat[1, t, :n_g] = my
-        feat[2, t, :n_g] = ca
-        feat[3, t, :n_g] = cb
-        feat[4, t, :n_g] = cc
-        feat[5:8, t, :n_g] = rng.uniform(0, 1, (3, n_g))
-        feat[8, t, :n_g] = op
-        feat[9, t, :n_g] = rng.uniform(0.5, 8.0, n_g)
-        counts.append(n_g)
-    return feat, np.asarray(counts, np.int32)
-
-
 def ring_views(n_views, width, height, rng, radius=4.5, fov_scale=0.85):
     """bench.py's camera ring: (viewmats, intrinsics, random images)."""
-    viewmats, intrins, images = [], [], []
-    for ang in np.linspace(0, 2 * np.pi, n_views, endpoint=False):
-        eye = np.array([radius * np.cos(ang), 0.8, radius * np.sin(ang)])
-        z = -eye / np.linalg.norm(eye)
-        x = np.cross(np.array([0.0, -1.0, 0.0]), z)
-        x /= np.linalg.norm(x)
-        w2c = np.eye(4, dtype=np.float32)
-        w2c[:3, :3] = np.stack([x, np.cross(z, x), z])
-        w2c[:3, 3] = -w2c[:3, :3] @ eye
-        viewmats.append(w2c)
-        intrins.append([width * fov_scale, width * fov_scale, width / 2, height / 2])
-        images.append(rng.uniform(0, 1, (height, width, 3)).astype(np.float32))
-    return np.stack(viewmats), np.array(intrins, np.float32), np.stack(images)
+    intrins = np.tile(np.array([[width * fov_scale, width * fov_scale, width / 2, height / 2]],
+                               np.float32), (n_views, 1))
+    images = rng.uniform(0, 1, (n_views, height, width, 3)).astype(np.float32)
+    return ring_viewmats(n_views, radius), intrins, images
 
 
 def bench_params(rng, capacity, n_alive, device):
@@ -168,6 +128,14 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
     ts_err = float((ts_k - ts_p).abs().max())
     if not fwd_err <= FWD_BAR:
         raise AssertionError(f"{name}: forward max abs {fwd_err:.3e} > {FWD_BAR}")
+    # the backward skips every chunk whose checkpoint row is all zero
+    reached_k = ts_k.reshape(t_total, n_chunks, cr.P).amax(dim=2) > 0
+    reached_p = ts_p.reshape(t_total, n_chunks, cr.P).amax(dim=2) > 0
+    if not torch.equal(reached_k, reached_p):
+        raise AssertionError(f"{name}: the kernel reached {int(reached_k.sum())} chunks, "
+                             f"the plain version {int(reached_p.sum())}")
+    if not ts_err <= FWD_BAR:
+        raise AssertionError(f"{name}: tstart max abs {ts_err:.3e} > {FWD_BAR}")
     if not torch.equal(out_k[:, :5], out_full[:, :5]):
         raise AssertionError(f"{name}: counts-bounded forward differs from the full sweep")
     if not torch.isfinite(out_k).all():
@@ -175,22 +143,28 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
 
     gout = torch.from_numpy(rng.standard_normal((t_total, 8, cr.P)).astype(np.float32)).cuda()
     t_final = (1.0 - out_p[:, 3]).contiguous()
-    g_k = cr.composite_bwd_cuda(packed, gout, ts_p, t_final, tx)
     g_p = cr.composite_tiles_bwd_plain(packed, gout, ts_p, t_final, tx)
+    g_scale = float(g_p.abs().max()) + 1e-12
+    # fed the plain forward's checkpoints, then the kernel's own (as training does)
+    g_k = cr.composite_bwd_cuda(packed, gout, ts_p, t_final, tx)
+    g_kk = cr.composite_bwd_cuda(packed, gout, ts_k, (1.0 - out_k[:, 3]).contiguous(), tx)
     torch.cuda.synchronize()
     bwd_abs = float((g_k - g_p).abs().max())
-    bwd_rel = bwd_abs / (float(g_p.abs().max()) + 1e-12)
-    if not bwd_rel <= BWD_BAR:
-        raise AssertionError(f"{name}: backward max|d|/max|g| {bwd_rel:.3e} > {BWD_BAR}")
-    log(f"[kernels] {name}: T={t_total} K={k} fwd max abs {fwd_err:.3e} "
-        f"(tstart {ts_err:.3e}), counts-bounded bit-identical, "
-        f"bwd max abs {bwd_abs:.3e} rel {bwd_rel:.3e}")
+    bwd_rel = bwd_abs / g_scale
+    chain_rel = float((g_kk - g_p).abs().max()) / g_scale
+    for what, rel in (("backward", bwd_rel), ("backward from the kernel's tstart", chain_rel)):
+        if not rel <= BWD_BAR:
+            raise AssertionError(f"{name}: {what} max|d|/max|g| {rel:.3e} > {BWD_BAR}")
+    log(f"[kernels] {name}: T={t_total} K={k} fwd max abs {fwd_err:.3e}, tstart "
+        f"{ts_err:.3e} over {int(reached_k.sum())} reached chunks, counts-bounded "
+        f"bit-identical, bwd max abs {bwd_abs:.3e} rel {bwd_rel:.3e} (from the kernel's "
+        f"tstart: rel {chain_rel:.3e})")
     res = {"fwd_err": fwd_err, "bwd_abs": bwd_abs, "bwd_rel": bwd_rel}
     if not timing_reps:
         return res
 
     # data-dependent work: the chunks this input actually reaches
-    reached = int((ts_p.reshape(t_total, n_chunks, cr.P).amax(dim=2) > 0).sum())
+    reached = int(reached_p.sum())
     pairs = reached * cr.CHUNK * cr.P
     chunk_bytes = reached * cr.CHUNK * 10 * 4
     fwd_bytes = chunk_bytes + t_total * 4 + t_total * 8 * cr.P * 4 + t_total * n_chunks * cr.P * 4
@@ -319,43 +293,34 @@ def real_packed(params, viewmat, intrin, width, height, k):
 
 
 def smoke_scene(device):
-    """A seeded 16-view capture of a ground-truth cloud, rendered by the port."""
-    import torch
-
+    """A seeded 16-view 320x180 capture of 3000 gaussians, rendered by the
+    port, as an SfMScene and its images."""
     from tpu_splat_torch.core.types import Cameras, SfMScene
-    from tpu_splat_torch.gs.render import render_view
 
-    rng = np.random.default_rng(11)
-    n, w, h, f = 3000, 320, 180, 260.0
-    means = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    gt = {
-        "means": means,
-        "scales": np.log(rng.uniform(0.02, 0.08, (n, 3))).astype(np.float32),
-        "quats": np.concatenate([np.ones((n, 1)), 0.3 * rng.normal(size=(n, 3))],
-                                1).astype(np.float32),
-        "opacities": rng.normal(1.0, 1.0, n).astype(np.float32),
-        "sh0": rng.normal(0, 0.8, (n, 3)).astype(np.float32),
-        "shN": np.zeros((n, 0, 3), np.float32),
-    }
-    vms, _, _ = ring_views(16, w, h, rng, radius=3.2)
-    with torch.no_grad():
-        images = np.stack([
-            render_view(*(torch.from_numpy(gt[k]).to(device) for k in
-                          ("means", "scales", "quats", "opacities", "sh0", "shN")),
-                        torch.from_numpy(vm).to(device), f, f, w / 2, h / 2, w, h,
-                        sh_degree=0, background=torch.zeros(3, device=device),
-                        max_per_tile=1024, device=device).color.cpu().numpy()
-            for vm in vms])
-    pts = (means + rng.normal(0, 0.05, means.shape)).astype(np.float32)
-    colors = np.clip(0.5 + 0.2820948 * gt["sh0"], 0, 1)
+    vms, intrin, images, pts, colors = synthetic_capture(
+        n=3000, width=320, height=180, focal=260.0, radius=3.2, seed=11, scale=0.04,
+        max_per_tile=1024, device=device)
+    n, (h, w) = len(pts), images.shape[1:3]
     cams = Cameras(camtoworlds=np.linalg.inv(vms).astype(np.float32),
-                   fx=np.full(16, f, np.float32), fy=np.full(16, f, np.float32),
-                   cx=np.full(16, w / 2, np.float32), cy=np.full(16, h / 2, np.float32),
-                   distortion=np.zeros((16, 4), np.float32), width=w, height=h)
+                   fx=intrin[:, 0], fy=intrin[:, 1], cx=intrin[:, 2], cy=intrin[:, 3],
+                   distortion=np.zeros((len(vms), 4), np.float32), width=w, height=h)
     scene = SfMScene(cameras=cams, points=pts, point_colors=colors,
                      point_errors=np.zeros(n, np.float32),
-                     track_counts=np.full(n, 2, np.float32), registered=np.ones(16, bool))
+                     track_counts=np.full(n, 2, np.float32), registered=np.ones(len(vms), bool))
     return scene, images
+
+
+def main_path_launches(path: str) -> dict:
+    """The launch counts since the last reset; raises unless every kernel
+    launched on this path."""
+    from tpu_splat_torch.gs import cuda_raster as cr
+
+    launches = dict(cr.LAUNCHES)
+    log(f"[main path] {path}: launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    return launches
 
 
 def main() -> int:
@@ -365,6 +330,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tpu_splat_torch import kernel_build
+    from tpu_splat_torch.core.device import resolve_device
     from tpu_splat_torch.core.ply import load_ply, save_ply
     from tpu_splat_torch.core.spz import load_spz, save_spz
     from tpu_splat_torch.gs import cuda_raster as cr
@@ -374,9 +340,7 @@ def main() -> int:
     from tpu_splat_torch.gs.trainer import TrainConfig, train_step
 
     t_start = time.time()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
     # 1. card
@@ -419,7 +383,6 @@ def main() -> int:
     dstate = densify_state_init(capacity, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cr.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
 
     def step(i, state):
@@ -430,6 +393,7 @@ def main() -> int:
         return (p, a, d), m
 
     state = (params, adam, dstate)
+    cr.reset_launch_counts()
     for i in range(3):  # warm-up
         state, metrics = step(i, state)
     torch.cuda.synchronize()
@@ -452,6 +416,7 @@ def main() -> int:
         f"psnr {float(metrics['psnr']):.3f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_steps(lambda i: step(i, state), 3 + n_steps, 5, step_ms)
+    launches_full = main_path_launches("full-width train_step")
     layers = layer_times(state[0], vms_d[0], [float(v) for v in intrins[0]], images_d[0],
                          width, height, cfg.max_per_tile)
     log("[layers] alone, ms: " + ", ".join(f"{n} {t:.3f}" for n, t in layers.items())
@@ -463,12 +428,14 @@ def main() -> int:
     scene, imgs = smoke_scene(dev)
     _, metrics0 = train_splat(scene, imgs, max_steps=0, downscale_factor=1, sh_degree=3,
                               device=dev)
+    cr.reset_launch_counts()
     t0 = time.time()
     cloud, metrics5 = train_splat(scene, imgs, max_steps=520, downscale_factor=1,
                                   sh_degree=3, seed=0, log_fn=lambda s: log(f"[e2e] {s}"),
                                   device=dev)
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
+    main_path_launches("train_splat")
     # the refine pass at step 500 must have changed the population
     if not (math.isfinite(metrics5["psnr"]) and cloud.num_points != scene.num_points):
         raise AssertionError(f"train_splat produced {cloud.num_points} gaussians from "
@@ -486,11 +453,6 @@ def main() -> int:
         f"{metrics5['psnr']:.3f} "
         f"over {int(metrics5['eval_views'])} views; .ply/.spz reloaded with {n_ply} gaussians")
 
-    launches = dict(cr.LAUNCHES)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    log(f"[main path] launches {launches}")
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({
         key: m1024[key] for key in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "bwd_ms",
@@ -501,11 +463,13 @@ def main() -> int:
     src = "tpu_splat_torch/csrc/composite.cu"
     kernels = [
         {"name": "composite_fwd", "route": "cuda", "source": src,
-         "replaces": "tpu_splat/gs/pallas_raster.py:328", "launches": launches["composite_fwd"],
+         "replaces": "tpu_splat/gs/pallas_raster.py:328",
+         "launches": launches_full["composite_fwd"],
          "max_abs_err": m["fwd_err"], "ms": m["fwd_ms"], "plain_ms": m["fwd_plain_ms"],
          "bound_ms": m["fwd_bound_ms"], "bound_by": m["fwd_bound_by"], "library_ms": None},
         {"name": "composite_bwd", "route": "cuda", "source": src,
-         "replaces": "tpu_splat/gs/pallas_raster.py:366", "launches": launches["composite_bwd"],
+         "replaces": "tpu_splat/gs/pallas_raster.py:366",
+         "launches": launches_full["composite_bwd"],
          "max_abs_err": m["bwd_abs"], "ms": m["bwd_ms"], "plain_ms": m["bwd_plain_ms"],
          "bound_ms": m["bwd_bound_ms"], "bound_by": m["bwd_bound_by"], "library_ms": None},
     ]

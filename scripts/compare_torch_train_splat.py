@@ -19,39 +19,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def capture(w=64, h=48, f=60.0, n=60, n_views=16):
-    import torch
-
-    from tpu_splat_torch.gs.render import render_view
-
-    rng = np.random.default_rng(7)
-    means = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    gt = [means, np.full((n, 3), np.log(0.12), np.float32),
-          np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1)),
-          np.full((n,), 2.0, np.float32),
-          ((rng.uniform(0, 1, (n, 3)) - 0.5) / 0.2820948).astype(np.float32),
-          np.zeros((n, 0, 3), np.float32)]
-    vms = []
-    for a in np.linspace(0, 2 * np.pi, n_views, endpoint=False):
-        eye = np.array([3.5 * np.cos(a), 0.8, 3.5 * np.sin(a)])
-        z = -eye / np.linalg.norm(eye)
-        x = np.cross(np.array([0.0, -1.0, 0.0]), z)
-        x /= np.linalg.norm(x)
-        m = np.eye(4, dtype=np.float32)
-        m[:3, :3] = np.stack([x, np.cross(z, x), z])
-        m[:3, 3] = -m[:3, :3] @ eye
-        vms.append(m)
-    vms = np.stack(vms)
-    images = np.stack([
-        render_view(*gt, torch.from_numpy(vm), f, f, w / 2, h / 2, w, h, sh_degree=0,
-                    background=torch.zeros(3), max_per_tile=128, device="cpu").color.numpy()
-        for vm in vms])
-    intrin = np.tile(np.array([[f, f, w / 2, h / 2]], np.float32), (n_views, 1))
-    pts = (means + rng.normal(0, 0.1, means.shape)).astype(np.float32)
-    colors = rng.uniform(0.3, 0.7, (n, 3)).astype(np.float32)
-    return np.linalg.inv(vms).astype(np.float32), intrin, images, pts, colors, w, h
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=600)
@@ -65,9 +32,11 @@ def main():
     from tpu_splat.gs import pipeline as jpipe
     from tpu_splat_torch.core import types as ttypes
     from tpu_splat_torch.gs import pipeline as tpipe
+    from tpu_splat_torch.testing import synthetic_capture
 
-    c2w, intrin, images, pts, colors, w, h = capture()
-    m = len(images)
+    viewmats, intrin, images, pts, colors = synthetic_capture()
+    c2w = np.linalg.inv(viewmats).astype(np.float32)
+    m, h, w = images.shape[:3]
     jscene = jtypes.SfMScene(
         cameras=jtypes.Cameras(camtoworlds=jnp.asarray(c2w), fx=jnp.asarray(intrin[:, 0]),
                                fy=jnp.asarray(intrin[:, 1]), cx=jnp.asarray(intrin[:, 2]),

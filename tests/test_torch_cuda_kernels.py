@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import build_packed
 from tpu_splat_torch.gs import cuda_raster as cr
+from tpu_splat_torch.testing import build_packed
 
 TX, TY = 4, 3
 
@@ -26,8 +26,9 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions(cuda_device):
-    """Forward max abs 2e-5, counts-bounded sweep bit-identical, backward
-    max|d| / max|g| 5e-5, and the autograd.Function launches both kernels."""
+    """Forward and tstart max abs 2e-5 with the same chunks reached,
+    counts-bounded sweep bit-identical, backward max|d| / max|g| 5e-5, and
+    the autograd.Function launches both kernels."""
     rng = np.random.default_rng(1)
     packed_np, counts_np = build_packed(rng, TX * TY, 2 * cr.CHUNK, TX)
     packed = torch.from_numpy(packed_np).to(cuda_device)
@@ -35,6 +36,9 @@ def test_kernels_match_plain_versions(cuda_device):
     out_k, ts_k = cr.composite_fwd_cuda(packed, counts, TX)
     out_p, ts_p = cr.composite_tiles_plain(packed, counts, TX, TY)
     assert float((out_k[:, :5] - out_p[:, :5]).abs().max()) <= 2e-5
+    assert float((ts_k - ts_p).abs().max()) <= 2e-5
+    reached = [ts.reshape(TX * TY, -1, cr.P).amax(dim=2) > 0 for ts in (ts_k, ts_p)]
+    assert torch.equal(*reached)
     out_full, _ = cr.composite_fwd_cuda(packed, torch.full_like(counts, packed.shape[2]), TX)
     assert torch.equal(out_k[:, :5], out_full[:, :5])
     gout = torch.from_numpy(rng.standard_normal(out_p.shape).astype(np.float32)).to(cuda_device)

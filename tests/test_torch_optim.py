@@ -46,8 +46,9 @@ def test_ssim_and_image_loss_match_reference():
     rng = np.random.default_rng(0)
     a = rng.uniform(0, 1, (40, 56, 3)).astype(np.float32)
     b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
-    sj = float(jax.jit(jloss.ssim)(a, b))
-    lj, gj = jax.jit(jax.value_and_grad(lambda x: jloss.image_loss(x, b)))(a)
+    (lj, sj), gj = jax.jit(jax.value_and_grad(
+        lambda x: (jloss.image_loss(x, b), jloss.ssim(x, b)), has_aux=True))(a)
+    sj = float(sj)
     ta = torch.from_numpy(a).requires_grad_(True)
     st = tloss.ssim(ta, torch.from_numpy(b))
     lt = tloss.image_loss(ta, torch.from_numpy(b))

@@ -1,5 +1,6 @@
-"""Parity of the port's rasterizer (tpu_splat_torch.gs.rasterize / cuda_raster)
-with the JAX reference, on the CPU.
+"""Parity of the port's tile binning (tpu_splat_torch.gs.rasterize) and
+compositing (cuda_raster) with the JAX reference, on the CPU. The whole
+rasterizer is held to the reference in test_torch_render.py.
 
 On the CPU the JAX rasterizer composites through `composite_tiles_reference`
 and differentiates it with autodiff; the port runs the plain versions of its
@@ -13,11 +14,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from scripts.check_kernel_parity import build_packed
+from scripts import check_kernel_parity
 from tpu_splat.gs import pallas_raster as jpr
 from tpu_splat.gs import rasterize as jras
 from tpu_splat_torch.gs import cuda_raster as cr
 from tpu_splat_torch.gs import rasterize as tras
+from tpu_splat_torch.testing import build_packed
 
 torch.set_num_threads(1)
 
@@ -29,30 +31,17 @@ def max_rel(ref, got):
     return float(np.max(np.abs(ref - np.asarray(got, np.float32))) / (np.max(np.abs(ref)) + 1e-12))
 
 
-@pytest.fixture(scope="module")
-def packed_fixture():
-    """check_kernel_parity's packed tensor: a near-empty tile, a tile that
-    saturates in chunk 0, a tile that never saturates, mid-opacity content."""
-    packed, counts = build_packed(np.random.default_rng(1), TX * TY, 2 * cr.CHUNK, TX, TS)
-    packed = np.array(packed)
-    counts = np.array(counts)
-    out_ref = np.asarray(jax.jit(
-        lambda p: jpr.composite_tiles_reference(p, TX, TY, TS))(packed))
-    return packed, counts, out_ref
-
-
-def test_tile_gaussians_matches_reference():
-    """Same gidx/gvalid per tile and the same overflow diagnostics, on a load
-    that overflows K, the corner-crosser tier and the 4x4 big tier."""
+def binning_load():
+    """A load that overflows K, the corner-crosser tier and the 4x4 big tier
+    (256x128, K=256): corner-crossers (small gaussians centred near a tile
+    corner), bigs spanning 3-4 tiles, and free ones, some culled."""
     rng = np.random.default_rng(5)
-    w, h, k = 256, 128, 256
+    w, h = 256, 128
     n_mid, n_big, n_free = 9000, 7000, 500
-    # corner-crossers: small gaussians centred near a tile corner
     corners = np.stack([rng.integers(1, w // TS, n_mid) * TS,
                         rng.integers(1, h // TS, n_mid) * TS], 1)
     m_mid = corners + rng.uniform(-1.5, 1.5, (n_mid, 2))
     r_mid = np.full(n_mid, 3.0)
-    # bigs spanning 3-4 tiles
     m_big = np.stack([rng.uniform(0, w, n_big), rng.uniform(0, h, n_big)], 1)
     r_big = rng.uniform(17, 24, n_big)
     m_free = np.stack([rng.uniform(-20, w + 20, n_free), rng.uniform(-20, h + 20, n_free)], 1)
@@ -62,11 +51,38 @@ def test_tile_gaussians_matches_reference():
     n = means2d.shape[0]
     depths = rng.uniform(0.2, 20.0, n).astype(np.float32)
     opac = rng.uniform(0.005, 1.0, n).astype(np.float32)
+    return means2d, depths, radii, opac
 
-    bj = jax.jit(lambda m, d, r, o: jras.tile_gaussians(m, d, r, w, h, TS, k, opacities=o))(
+
+@pytest.fixture(scope="module")
+def packed_fixture():
+    """check_kernel_parity's packed tensor (a near-empty tile, a tile that
+    saturates in chunk 0, a tile that never saturates, mid-opacity content),
+    a cotangent for it, and the reference composite and its jax.grad from
+    one jit."""
+    packed, counts = build_packed(np.random.default_rng(1), TX * TY, 2 * cr.CHUNK, TX, TS)
+    ref_packed, ref_counts = check_kernel_parity.build_packed(
+        np.random.default_rng(1), TX * TY, 2 * cr.CHUNK, TX, TS)
+    assert np.array_equal(packed, np.asarray(ref_packed))
+    assert np.array_equal(counts, np.asarray(ref_counts))
+    cot = np.random.default_rng(2).standard_normal((TX * TY, 8, cr.P)).astype(np.float32)
+
+    def f(p):
+        out = jpr.composite_tiles_reference(p, TX, TY, TS)
+        return jnp.sum(out * cot), out
+
+    (_, out_ref), g_ref = jax.jit(jax.value_and_grad(f, has_aux=True))(packed)
+    return packed, counts, np.asarray(out_ref), cot, np.asarray(g_ref)
+
+
+def test_tile_gaussians_matches_reference():
+    """Same gidx/gvalid per tile and the same overflow diagnostics, on a load
+    that overflows K, the corner-crosser tier and the 4x4 big tier."""
+    means2d, depths, radii, opac = binning_load()
+    bj = jax.jit(lambda m, d, r, o: jras.tile_gaussians(m, d, r, 256, 128, TS, 256, opacities=o))(
         means2d, depths, radii, opac)
     bt = tras.tile_gaussians(*(torch.from_numpy(a) for a in (means2d, depths, radii)),
-                             w, h, TS, k, opacities=torch.from_numpy(opac))
+                             256, 128, TS, 256, opacities=torch.from_numpy(opac))
     # exact: integer binning, identical f32 cull arithmetic
     assert np.array_equal(np.asarray(bj.gvalid), bt.gvalid.numpy())
     assert np.array_equal(np.asarray(bj.gidx), bt.gidx.numpy())
@@ -78,7 +94,7 @@ def test_tile_gaussians_matches_reference():
 
 def test_plain_forward_matches_reference(packed_fixture):
     """Bar of check_kernel_parity: max abs 2e-5 (f32 cumprod vs sequential order)."""
-    packed, counts, out_ref = packed_fixture
+    packed, counts, out_ref = packed_fixture[:3]
     out, tstart = cr.composite_tiles_plain(torch.from_numpy(packed), torch.from_numpy(counts),
                                            TX, TY)
     assert float(np.max(np.abs(out.numpy()[:, :5] - out_ref[:, :5]))) <= 2e-5
@@ -92,7 +108,7 @@ def test_plain_forward_matches_reference(packed_fixture):
 def test_counts_bounded_forward_is_bit_identical(packed_fixture):
     """Skipped chunks are all-sentinel (alpha exactly 0): bounding the sweep by
     the tile's pair count must not change one bit."""
-    packed, counts, _ = packed_fixture
+    packed, counts = packed_fixture[:2]
     p = torch.from_numpy(packed)
     bounded, _ = cr.composite_tiles_plain(p, torch.from_numpy(counts), TX, TY)
     full, _ = cr.composite_tiles_plain(p, torch.full((TX * TY,), packed.shape[2]), TX, TY)
@@ -103,10 +119,7 @@ def test_plain_backward_matches_reference_grad_and_autograd(packed_fixture):
     """Analytic backward vs jax.grad of the reference and vs torch autograd of
     the plain forward: max |d| / max |g| <= 5e-5 (check_kernel_parity's bar;
     conic gradients reach 1e2-1e3 on tight splats, so the bar is relative)."""
-    packed, counts, out_ref = packed_fixture
-    cot = np.random.default_rng(2).standard_normal(out_ref.shape).astype(np.float32)
-    g_ref = np.asarray(jax.jit(jax.grad(
-        lambda p: jnp.sum(jpr.composite_tiles_reference(p, TX, TY, TS) * cot)))(packed))
+    packed, counts, _, cot, g_ref = packed_fixture[:5]
 
     p = torch.from_numpy(packed).requires_grad_(True)
     c = torch.from_numpy(counts)
@@ -120,43 +133,3 @@ def test_plain_backward_matches_reference_grad_and_autograd(packed_fixture):
     p2 = torch.from_numpy(packed).requires_grad_(True)
     (cr.composite_tiles(p2, c, TX, TY) * torch.from_numpy(cot)).sum().backward()
     assert torch.equal(p2.grad, g_analytic)
-
-
-def test_rasterize_matches_reference():
-    """Image, alpha and depth, and gradients into all five per-gaussian inputs
-    through the bf16 pack gather. Both sides round the pack to bf16 and route
-    gradients through bf16, so they agree to f32 summation order: 1e-5 abs on
-    the image, 1e-4 of the gradient scale."""
-    rng = np.random.default_rng(2)
-    n, w, h, k = 400, 64, 48, 256
-    m2d = np.stack([rng.uniform(-5, w + 5, n), rng.uniform(-5, h + 5, n)], 1).astype(np.float32)
-    sc = rng.uniform(1.5, 6, n)
-    conics = np.stack([1 / sc**2, rng.uniform(-0.1, 0.1, n) / sc**2,
-                       1 / (sc * rng.uniform(0.6, 1.4, n)) ** 2], 1).astype(np.float32)
-    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    op = rng.uniform(0.05, 0.95, n).astype(np.float32)
-    depths = rng.uniform(0.5, 10, n).astype(np.float32)
-    radii = np.ceil(3 * sc * 1.4).astype(np.float32)
-    bg = np.array([0.1, 0.2, 0.3], np.float32)
-    wimg = rng.standard_normal((h, w, 3)).astype(np.float32)
-
-    def jloss(m, c, col, o, d):
-        out = jras.rasterize(m, c, col, o, d, radii, w, h, background=bg, max_per_tile=k)
-        loss = jnp.sum(out.color * wimg) + jnp.sum(out.alpha * wimg[..., 0]) \
-            + jnp.sum(out.depth * wimg[..., 1])
-        return loss, out
-
-    (_, oj), gj = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4), has_aux=True))(
-        m2d, conics, colors, op, depths)
-
-    ins = [torch.from_numpy(a).requires_grad_(True) for a in (m2d, conics, colors, op, depths)]
-    ot = tras.rasterize(*ins, torch.from_numpy(radii), w, h, background=torch.from_numpy(bg),
-                        max_per_tile=k, device="cpu")
-    wt = torch.from_numpy(wimg)
-    ((ot.color * wt).sum() + (ot.alpha * wt[..., 0]).sum()
-     + (ot.depth * wt[..., 1]).sum()).backward()
-    assert float(np.max(np.abs(np.asarray(oj.color) - ot.color.detach().numpy()))) <= 1e-5
-    assert float(np.max(np.abs(np.asarray(oj.alpha) - ot.alpha.detach().numpy()))) <= 1e-5
-    assert float(np.max(np.abs(np.asarray(oj.depth) - ot.depth.detach().numpy()))) <= 1e-5
-    for name, g_ref, x in zip(["means2d", "conics", "colors", "opacities", "depths"], gj, ins):
-        assert max_rel(g_ref, x.grad.numpy()) <= 1e-4, name

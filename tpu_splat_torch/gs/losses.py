@@ -30,11 +30,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     """Structural similarity over (H, W, C) images in [0, 1]; scalar mean.
 
     The separable 11-tap gaussian blur is two banded-matrix products, as in the
-    reference, in full f32: on the GPU, TF32 is switched off for matmuls and
-    cuDNN (it would keep ~3 decimal digits and break parity)."""
-    if img1.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    reference, in full f32 (core/device.resolve_device switches TF32 off)."""
     c1, c2 = 0.01**2, 0.03**2
     h, w, c = img1.shape
     bw = _blur_band(w, window_size, img1.device)
