@@ -9,11 +9,15 @@ the JAX package. Phases, each of which raises on failure:
 2. build: compile the compositing kernels from tpu_splat_torch/csrc with nvcc;
 3. kernels against their plain PyTorch versions, on the card: the
    check_kernel_parity fixture (near-empty, saturating and never-saturating
-   tiles) and packed tensors from a real 1280x720 binning at K=256 and
-   K=1024; forward and tstart max abs <= 2e-5 with the same chunks reached,
-   counts-bounded sweep bit-identical, backward max|d| / max|g| <= 5e-5 fed
-   by the plain forward's checkpoints and by the kernel's own; kernel and
-   plain times;
+   tiles), the same fixture with ragged pair counts (RAGGED_COUNTS: an empty
+   tile, and tiles on the edges of the backward's 16-gaussian segments and
+   128-gaussian chunks) and packed tensors from a real 1280x720 binning at
+   K=256 and K=1024; forward and tstart max abs <= 2e-5 with the same
+   chunks reached, counts-bounded sweep bit-identical, backward
+   max|d| / max|g| <= 5e-5 fed by the plain forward's checkpoints and by
+   the kernel's own, two backward launches bit-identical, and every
+   gradient slot past its tile's count exactly 0; kernel and plain times,
+   and bounds counted over the real pairs of the reached chunks;
 4. full width: train_step on bench.py's workload (2^19 capacity, 400K alive,
    1280x720, SH degree 3, 8 ring views, no random background, K=256), ms/step
    from CUDA events after a warm-up, finite loss;
@@ -38,7 +42,8 @@ import time
 
 import numpy as np
 
-from tpu_splat_torch.testing import build_packed, ring_viewmats, synthetic_capture
+from tpu_splat_torch.testing import (RAGGED_COUNTS, build_packed, ring_viewmats,
+                                     synthetic_capture)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -146,8 +151,10 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
     g_p = cr.composite_tiles_bwd_plain(packed, gout, ts_p, t_final, tx)
     g_scale = float(g_p.abs().max()) + 1e-12
     # fed the plain forward's checkpoints, then the kernel's own (as training does)
-    g_k = cr.composite_bwd_cuda(packed, gout, ts_p, t_final, tx)
-    g_kk = cr.composite_bwd_cuda(packed, gout, ts_k, (1.0 - out_k[:, 3]).contiguous(), tx)
+    g_k = cr.composite_bwd_cuda(packed, counts, gout, ts_p, t_final, tx)
+    g_kk = cr.composite_bwd_cuda(packed, counts, gout, ts_k, (1.0 - out_k[:, 3]).contiguous(),
+                                 tx)
+    g_again = cr.composite_bwd_cuda(packed, counts, gout, ts_p, t_final, tx)
     torch.cuda.synchronize()
     bwd_abs = float((g_k - g_p).abs().max())
     bwd_rel = bwd_abs / g_scale
@@ -155,17 +162,29 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
     for what, rel in (("backward", bwd_rel), ("backward from the kernel's tstart", chain_rel)):
         if not rel <= BWD_BAR:
             raise AssertionError(f"{name}: {what} max|d|/max|g| {rel:.3e} > {BWD_BAR}")
+    if not torch.equal(g_k, g_again):
+        raise AssertionError(f"{name}: two backward launches on one input differ")
+    # the sweep stops at each tile's count: every slot past it must be exactly 0
+    past = torch.arange(k, device=counts.device)[None, :] >= counts[:, None].long()
+    n_past = int(past.sum())
+    if not bool((g_k[:, past] == 0).all()):
+        raise AssertionError(f"{name}: backward nonzero in a slot past its tile's count")
     log(f"[kernels] {name}: T={t_total} K={k} fwd max abs {fwd_err:.3e}, tstart "
         f"{ts_err:.3e} over {int(reached_k.sum())} reached chunks, counts-bounded "
         f"bit-identical, bwd max abs {bwd_abs:.3e} rel {bwd_rel:.3e} (from the kernel's "
-        f"tstart: rel {chain_rel:.3e})")
+        f"tstart: rel {chain_rel:.3e}), two launches bit-identical, {n_past} slots past "
+        f"the counts all 0")
     res = {"fwd_err": fwd_err, "bwd_abs": bwd_abs, "bwd_rel": bwd_rel}
     if not timing_reps:
         return res
 
-    # data-dependent work: the chunks this input actually reaches
+    # data-dependent work: the chunks this input reaches (a prefix of each
+    # tile's), and the real pairs in them; the slots past a tile's count hold
+    # the zero sentinel row, which neither kernel needs to sweep
     reached = int(reached_p.sum())
-    pairs = reached * cr.CHUNK * cr.P
+    slot_pairs = reached * cr.CHUNK * cr.P
+    reached_slots = reached_p.sum(dim=1) * cr.CHUNK
+    pairs = int(torch.minimum(counts.long(), reached_slots).sum()) * cr.P
     chunk_bytes = reached * cr.CHUNK * 10 * 4
     fwd_bytes = chunk_bytes + t_total * 4 + t_total * 8 * cr.P * 4 + t_total * n_chunks * cr.P * 4
     bwd_bytes = (chunk_bytes + t_total * 5 * cr.P * 4 + t_total * n_chunks * cr.P * 4
@@ -176,15 +195,16 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
     res["fwd_ms"] = time_ms(lambda: cr.composite_fwd_cuda(packed, counts, tx), timing_reps)
-    res["bwd_ms"] = time_ms(lambda: cr.composite_bwd_cuda(packed, gout, ts_p, t_final, tx),
-                            timing_reps)
+    res["bwd_ms"] = time_ms(
+        lambda: cr.composite_bwd_cuda(packed, counts, gout, ts_p, t_final, tx), timing_reps)
     res["fwd_plain_ms"] = time_ms(lambda: cr.composite_tiles_plain(packed, counts, tx, ty), 3)
     res["bwd_plain_ms"] = time_ms(
         lambda: cr.composite_tiles_bwd_plain(packed, gout, ts_p, t_final, tx), 3)
     res["fwd_bound_ms"], res["fwd_bound_by"] = bound(fwd_bytes, pairs * FWD_OPS_PER_PAIR)
     res["bwd_bound_ms"], res["bwd_bound_by"] = bound(bwd_bytes, pairs * BWD_OPS_PER_PAIR)
     res["reached_chunks"] = reached
-    log(f"[kernels] {name}: reached {reached}/{t_total * n_chunks} chunks; "
+    log(f"[kernels] {name}: reached {reached}/{t_total * n_chunks} chunks, {slot_pairs} "
+        f"pixel-slot pairs in them, {pairs} real pairs (the operation bounds' count); "
         f"fwd {res['fwd_ms']:.3f} ms (plain {res['fwd_plain_ms']:.3f}, bound "
         f"{res['fwd_bound_ms']:.4f} by {res['fwd_bound_by']}); bwd {res['bwd_ms']:.3f} ms "
         f"(plain {res['bwd_plain_ms']:.3f}, bound {res['bwd_bound_ms']:.4f} by "
@@ -358,9 +378,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(1)
-    fx_packed, fx_counts = build_packed(rng, 12, 2 * cr.CHUNK, 4)
-    compare("fixture", torch.from_numpy(fx_packed).to(dev), torch.from_numpy(fx_counts).to(dev),
-            4, 3, rng)
+    for fx_name, fx_count in (("fixture", None), ("ragged fixture", RAGGED_COUNTS)):
+        fx_packed, fx_counts = build_packed(rng, 12, 2 * cr.CHUNK, 4, counts=fx_count)
+        compare(fx_name, torch.from_numpy(fx_packed).to(dev),
+                torch.from_numpy(fx_counts).to(dev), 4, 3, rng)
 
     width, height, capacity, n_alive = 1280, 720, 1 << 19, 400_000
     tx, ty = math.ceil(width / 16), math.ceil(height / 16)

@@ -114,7 +114,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_huge_renders():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cr.composite_fwd_cuda(packed, counts, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        cr.composite_bwd_cuda(packed, torch.zeros((2, 8, cr.P)),
+        cr.composite_bwd_cuda(packed, counts, torch.zeros((2, 8, cr.P)),
                               torch.zeros((2, cr.P)), torch.zeros((2, cr.P)), 2)
     with pytest.raises(PipelineError, match="765"):
         tras.tile_gaussians(torch.zeros((4, 2)), torch.ones(4), torch.ones(4),

@@ -133,3 +133,26 @@ def test_plain_backward_matches_reference_grad_and_autograd(packed_fixture):
     p2 = torch.from_numpy(packed).requires_grad_(True)
     (cr.composite_tiles(p2, c, TX, TY) * torch.from_numpy(cot)).sum().backward()
     assert torch.equal(p2.grad, g_analytic)
+
+
+def test_slots_past_counts_are_sentinel_with_zero_gradient():
+    """The premise of the backward kernel's cut at each tile's pair count: on
+    a pack_tiles output every slot at or past counts[t] is the zero sentinel
+    row, and the plain backward's gradient there is exactly 0."""
+    rng = np.random.default_rng(9)
+    n, w, h, k = 300, TX * TS, TY * TS, 2 * cr.CHUNK
+    scale = rng.uniform(1.0, 4.0, n)
+    means2d = rng.uniform([-6.0, -6.0], [w + 6.0, h + 6.0], (n, 2))
+    conics = np.stack([scale**-2, np.zeros(n), scale**-2], 1)
+    args = [means2d, conics, rng.uniform(0, 1, (n, 3)), rng.uniform(0.05, 0.95, n),
+            rng.uniform(0.5, 10.0, n), np.ceil(3.0 * scale)]
+    packed, counts, _ = tras.pack_tiles(*(torch.from_numpy(a.astype(np.float32)) for a in args),
+                                        w, h, TS, k)
+    assert bool((counts > 0).any()) and bool((counts < k).all())
+    past = torch.arange(k)[None, :] >= counts[:, None].long()
+    assert bool((packed[:, past] == 0).all())
+    out, tstart = cr.composite_tiles_plain(packed, counts, TX, TY)
+    gout = torch.from_numpy(rng.standard_normal((TX * TY, 8, cr.P)).astype(np.float32))
+    g = cr.composite_tiles_bwd_plain(packed, gout, tstart, 1.0 - out[:, 3], TX)
+    assert bool((g[:, past] == 0).all())
+    assert bool((g[:, ~past] != 0).any())

@@ -18,8 +18,7 @@
 // are bound by f32/SFU operations, not by device memory. The design keeps every
 // per-pixel quantity in registers and stages each 128-gaussian chunk's 10 used
 // channels once in shared memory, where all 256 threads read them as
-// broadcasts. The backward adds a warp-shuffle reduction per gaussian, skipped
-// for warps where the gaussian touches no pixel.
+// broadcasts.
 //
 // Semantics kept exactly from the reference:
 //  * the early exit is TILE-wide and checked once per chunk, before the chunk
@@ -28,14 +27,29 @@
 //  * tstart holds each reached chunk's start transmittance and 0 for every
 //    other chunk; the backward skips chunks whose tstart is 0 on every pixel.
 //
+// The backward (replaces pallas_raster.py:366) also sums, for every gaussian,
+// 10 gradient channels over the tile's 256 pixels. A 5-step warp butterfly per
+// channel costs 50 shuffles per (warp, gaussian), and a shuffle issues at a
+// quarter of the f32 rate: those shuffles, not the ~60 operations of the pair,
+// would set its pace. Instead it takes the gaussians in groups of 3 and
+// reduce-scatters their 30 values (padded to 32) across the warp by recursive
+// halving: 31 shuffles, about 10 per gaussian, after which lane l holds the
+// warp's sum of value l and 30 lanes store at once. A group that touches no
+// pixel of the warp is skipped. The per-warp sums are then added over the 8
+// warps in a fixed order: no atomics, and dpacked is the same bits on every
+// run. It also stops each chunk at the tile's pair count, rounded up to whole
+// 16-gaussian segments: the slots past counts[t] hold the zero sentinel row,
+// whose gradient is exactly 0, and are written as zeros without being swept.
+//
 // Backward transmittance: T_i within a chunk is recomputed forward from the
 // tstart checkpoint, never by dividing back by (1 - alpha) -- with alpha up to
 // 0.999 that division amplifies rounding by up to 1000x. A first pass stores
 // the transmittance at the start of each 16-gaussian segment in shared memory
 // (8 x 256 floats); the reverse walk then recomputes one segment at a time
-// into registers (alpha, raw alpha, T_i for 16 gaussians) and walks it
-// backwards. This is exact like keeping a 128 x 256 prefix in shared memory,
-// but needs 8 KB instead of 128 KB, at the cost of computing each alpha twice.
+// into registers (alpha and T_i for 16 gaussians) and walks it backwards: its
+// last gaussian alone, then 5 groups of 3. This is exact like keeping a
+// 128 x 256 prefix in shared memory, but needs 8 KB instead of 128 KB, at the
+// cost of computing each alpha twice.
 
 #include <cuda_runtime.h>
 
@@ -131,120 +145,215 @@ composite_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ c
   o[7 * P] = 0.0f;
 }
 
-constexpr size_t BWD_SMEM = sizeof(float) * (NCH * CHUNK + NSEG * P + NWARP * CHUNK * NGRAD);
+constexpr int GROUP = 3;  // gaussians per warp reduce-scatter in the backward
+static_assert((SEG - 1) % GROUP == 0, "a segment walks as one gaussian and whole groups");
+constexpr int ROW = 12;   // floats per gaussian in the backward's row-major copy
+constexpr size_t BWD_SMEM =
+    sizeof(float) * (NCH * CHUNK + CHUNK * ROW + NSEG * P + NWARP * CHUNK * NGRAD);
 
-__global__ void __launch_bounds__(P)
-composite_bwd_kernel(const float* __restrict__ packed, const float* __restrict__ gout,
-                     const float* __restrict__ tstart, const float* __restrict__ t_final,
-                     float* __restrict__ dpacked, int T, int K, int tx) {
-  extern __shared__ float smem[];
+// Stage chunk c of tile t twice: channel-major for the alpha recompute, and
+// one row of ROW floats per gaussian -- its 10 channels, then 1 / max(op,
+// 1e-12) -- that the gradient reads as three float4 broadcasts.
+__device__ __forceinline__ void load_chunk_bwd(float (*s)[CHUNK], float* rows,
+                                               const float* packed, size_t plane, int t, int K,
+                                               int c) {
+  const float* base = packed + (size_t)t * K + (size_t)c * CHUNK;
+  for (int idx = threadIdx.x; idx < NCH * CHUNK; idx += P) {
+    const int ch = idx / CHUNK;
+    const int i = idx % CHUNK;
+    const float x = base[(size_t)ch * plane + i];
+    s[ch][i] = x;
+    rows[i * ROW + ch] = x;
+    if (ch == 8) rows[i * ROW + NCH] = 1.0f / fmaxf(x, 1e-12f);
+  }
+}
+
+// What the backward knows of its pixel.
+struct PixelGrad {
+  float px, py;             // pixel centre
+  float dCr, dCg, dCb, dD;  // cotangents of colour and depth
+  float dA_tf;              // cotangent of alpha times T_final
+};
+
+// The 10 gradient terms of gaussian i at this pixel into gv[0:10], given its
+// alpha and the transmittance T_i before it; then adds w * e to the suffix.
+// On a live pair alpha = min(raw, 0.999), so raw < 0.999 exactly where
+// alpha < 0.999, and raw = alpha there: the raw alpha is not needed.
+__device__ __forceinline__ void pair_grad(const float* rows, int i, float alpha, float ti,
+                                          const PixelGrad& q, float& suffix, float* gv) {
+  const float4* row = reinterpret_cast<const float4*>(rows + i * ROW);
+  const float4 m = row[0];  // mean x, mean y, conic a, conic b
+  const float4 n = row[1];  // conic c, r, g, b
+  const float4 o = row[2];  // opacity, depth, 1 / max(opacity, 1e-12), pad
+  const float dx = q.px - m.x;
+  const float dy = q.py - m.y;
+  const float ca = m.z, cb = m.w, cc = n.x;
+  const float w = alpha * ti;
+  const float e = n.y * q.dCr + n.z * q.dCg + n.w * q.dCb + o.y * q.dD;
+  // the SFU's reciprocal (2 ulp) in place of an IEEE division: 1 - alpha
+  // lies in [1e-3, 1], far from where __fdividef loses accuracy
+  const float inv_om = __fdividef(1.0f, fmaxf(1.0f - alpha, 1e-3f));
+  const bool active = alpha > 0.0f && alpha < MAX_ALPHA;
+  const float dalpha = active ? ti * e - suffix * inv_om + q.dA_tf * inv_om : 0.0f;
+  const float dsig = -alpha * dalpha;
+  const float gx = ca * dx + cb * dy;
+  const float gy = cc * dy + cb * dx;
+  gv[0] = -gx * dsig;
+  gv[1] = -gy * dsig;
+  gv[2] = 0.5f * dx * dx * dsig;
+  gv[3] = dx * dy * dsig;
+  gv[4] = 0.5f * dy * dy * dsig;
+  gv[5] = w * q.dCr;
+  gv[6] = w * q.dCg;
+  gv[7] = w * q.dCb;
+  gv[8] = active ? alpha * o.z * dalpha : 0.0f;
+  gv[9] = w * q.dD;
+  suffix += w * e;
+}
+
+// Warp reduce-scatter of 2^LOGN values per lane (LOGN 4 or 5) by recursive
+// halving: at offset o each lane keeps the half of its values that bit o of
+// its lane number selects and adds the partner lane's copy of that half, one
+// shuffle per kept value. Lane l ends with the warp's sum of value
+// l >> (5 - LOGN); with 16 values the last offset then sums lane pairs.
+// 2^LOGN - 1 + (5 - LOGN) shuffles in all, and a fixed order of additions.
+template <int LOGN>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[1 << LOGN], int lane) {
+  constexpr int N = 1 << LOGN;
+#pragma unroll
+  for (int step = 0; step < LOGN; ++step) {
+    const int off = 16 >> step;
+    const int half = (N / 2) >> step;
+    const bool upper = lane & off;
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      if (k < half) {
+        const float send = upper ? v[k] : v[k + half];
+        const float keep = upper ? v[k + half] : v[k];
+        v[k] = keep + __shfl_xor_sync(FULL, send, off);
+      }
+    }
+  }
+  float r = v[0];
+#pragma unroll
+  for (int off = 16 >> LOGN; off > 0; off >>= 1) r += __shfl_xor_sync(FULL, r, off);
+  return r;
+}
+
+// Gradients of the G gaussians base + hi, base + hi - 1, ... (in the reverse
+// sweep's order) into this warp's partial sums pw (CHUNK x NGRAD), by one
+// reduce-scatter after which G * NGRAD lanes store at once. A group that no
+// pixel of the warp is live for stores zeros and leaves the suffix as it is
+// (w = 0 on every pixel of the warp).
+template <int G>
+__device__ __forceinline__ void walk_group(const float* rows, int base, int hi,
+                                           const float (&a)[SEG], const float (&ti)[SEG],
+                                           const PixelGrad& q, float& suffix, float* pw,
+                                           int lane) {
+  constexpr int LOGN = G * NGRAD > 16 ? 5 : 4;
+  static_assert(G * NGRAD <= (1 << LOGN), "a group's gradients fit one reduce-scatter");
+  bool live = false;
+#pragma unroll
+  for (int m = 0; m < G; ++m) live |= a[hi - m] > 0.0f;
+  if (!__any_sync(FULL, live)) {
+    if (lane < G * NGRAD) pw[(base + hi - G + 1) * NGRAD + lane] = 0.0f;
+    return;
+  }
+  float v[1 << LOGN];
+#pragma unroll
+  for (int m = 0; m < G; ++m) {
+    pair_grad(rows, base + hi - m, a[hi - m], ti[hi - m], q, suffix, v + m * NGRAD);
+  }
+#pragma unroll
+  for (int k = G * NGRAD; k < (1 << LOGN); ++k) v[k] = 0.0f;
+  const float sum = warp_reduce_scatter<LOGN>(v, lane);
+  const int idx = lane >> (5 - LOGN);  // member idx / NGRAD, channel idx % NGRAD
+  if (idx < G * NGRAD && lane % (32 >> LOGN) == 0) {
+    pw[(base + hi - idx / NGRAD) * NGRAD + idx % NGRAD] = sum;
+  }
+}
+
+__global__ void __launch_bounds__(P, 2)
+composite_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ counts,
+                     const float* __restrict__ gout, const float* __restrict__ tstart,
+                     const float* __restrict__ t_final, float* __restrict__ dpacked, int T,
+                     int K, int tx) {
+  extern __shared__ __align__(16) float smem[];
   float (*s)[CHUNK] = reinterpret_cast<float (*)[CHUNK]>(smem);  // NCH x CHUNK
-  float* ck = smem + NCH * CHUNK;      // NSEG x P segment-start transmittances
+  float* rows = smem + NCH * CHUNK;    // CHUNK x ROW, 16-byte aligned
+  float* ck = rows + CHUNK * ROW;      // NSEG x P segment-start transmittances
   float* part = ck + NSEG * P;         // NWARP x CHUNK x NGRAD per-warp sums
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float px = (float)((t % tx) * TILE + tid % TILE) + 0.5f;
-  const float py = (float)((t / tx) * TILE + tid / TILE) + 0.5f;
   const int n_chunks = K / CHUNK;
   const size_t plane = (size_t)T * K;
+  float* pw = part + (tid >> 5) * CHUNK * NGRAD;
+  const int count = counts[t];
 
+  PixelGrad q;
+  q.px = (float)((t % tx) * TILE + tid % TILE) + 0.5f;
+  q.py = (float)((t / tx) * TILE + tid / TILE) + 0.5f;
   const float* go = gout + (size_t)t * 8 * P + tid;
-  const float dCr = go[0 * P], dCg = go[1 * P], dCb = go[2 * P];
-  const float dA = go[3 * P], dD = go[4 * P];
-  const float dA_tf = dA * t_final[(size_t)t * P + tid];
+  q.dCr = go[0 * P];
+  q.dCg = go[1 * P];
+  q.dCb = go[2 * P];
+  q.dD = go[4 * P];
+  q.dA_tf = go[3 * P] * t_final[(size_t)t * P + tid];
 
   float suffix = 0.0f;  // S = sum over later gaussians of w_j e_j
   for (int c = n_chunks - 1; c >= 0; --c) {
+    // the chunk's real gaussians; the slots past them hold the zero sentinel row
+    const int n_real = min(max(count - c * CHUNK, 0), CHUNK);
     const float t0 = tstart[((size_t)t * n_chunks + c) * P + tid];
     float* dst = dpacked + (size_t)t * K + (size_t)c * CHUNK;
-    // barrier before shared buffers are reused, and the dead-chunk test
-    if (!__syncthreads_or(t0 > 0.0f)) {
+    // an empty chunk touches no shared memory; otherwise the barrier before
+    // the shared buffers are reused, and the dead-chunk test
+    if (n_real == 0 || !__syncthreads_or(t0 > 0.0f)) {
       for (int i = tid; i < C_PACK * CHUNK; i += P) {
         dst[(size_t)(i / CHUNK) * plane + (i % CHUNK)] = 0.0f;
       }
       continue;
     }
-    load_chunk(s, packed, plane, t, K, c);
+    load_chunk_bwd(s, rows, packed, plane, t, K, c);
     __syncthreads();
+    const int n_seg = (n_real + SEG - 1) / SEG;
 
-    // pass 1: transmittance at the start of each segment
+    // pass 1: transmittance at the start of each segment the sweep reaches
     float tr = t0;
-    for (int sg = 0; sg < NSEG; ++sg) {
-      ck[sg * P + tid] = tr;
+    ck[tid] = tr;
+    for (int sg = 0; sg + 1 < n_seg; ++sg) {
 #pragma unroll
-      for (int j = 0; j < SEG; ++j) {
-        tr *= 1.0f - chunk_alpha(s, sg * SEG + j, px, py).a;
-      }
+      for (int j = 0; j < SEG; ++j) tr *= 1.0f - chunk_alpha(s, sg * SEG + j, q.px, q.py).a;
+      ck[(sg + 1) * P + tid] = tr;
     }
 
-    // pass 2: segments in reverse, each recomputed into registers
-    for (int sg = NSEG - 1; sg >= 0; --sg) {
-      float a[SEG], araw[SEG], ti[SEG];
+    // pass 2: segments in reverse, each recomputed into registers and walked
+    // backwards, its last gaussian alone and then in groups of GROUP
+    for (int sg = n_seg - 1; sg >= 0; --sg) {
+      float a[SEG], ti[SEG];
       tr = ck[sg * P + tid];
 #pragma unroll
       for (int j = 0; j < SEG; ++j) {
-        const Alpha al = chunk_alpha(s, sg * SEG + j, px, py);
-        araw[j] = al.raw;
-        a[j] = al.a;
+        a[j] = chunk_alpha(s, sg * SEG + j, q.px, q.py).a;
         ti[j] = tr;
         tr *= 1.0f - a[j];
       }
+      walk_group<1>(rows, sg * SEG, SEG - 1, a, ti, q, suffix, pw, lane);
 #pragma unroll
-      for (int j = SEG - 1; j >= 0; --j) {
-        const int i = sg * SEG + j;
-        const float alpha = a[j];
-        float* pw = part + ((size_t)warp * CHUNK + i) * NGRAD;
-        // alpha > 0 exactly where the pair is live; a warp with no live pixel
-        // contributes zero to every channel of this gaussian
-        if (!__any_sync(FULL, alpha > 0.0f)) {
-          if (lane < NGRAD) pw[lane] = 0.0f;
-          continue;
-        }
-        const float dx = px - s[0][i];
-        const float dy = py - s[1][i];
-        const float ca = s[2][i], cb = s[3][i], cc = s[4][i];
-        const float op = s[8][i];
-        const float w = alpha * ti[j];
-        const float e = s[5][i] * dCr + s[6][i] * dCg + s[7][i] * dCb + s[9][i] * dD;
-        const float inv_om = 1.0f / fmaxf(1.0f - alpha, 1e-3f);
-        const bool active = alpha > 0.0f && araw[j] < MAX_ALPHA;
-        const float dalpha = active ? ti[j] * e - suffix * inv_om + dA_tf * inv_om : 0.0f;
-        const float dsig = -alpha * dalpha;
-        const float gx = ca * dx + cb * dy;
-        const float gy = cc * dy + cb * dx;
-        float gv[NGRAD];
-        gv[0] = -gx * dsig;
-        gv[1] = -gy * dsig;
-        gv[2] = 0.5f * dx * dx * dsig;
-        gv[3] = dx * dy * dsig;
-        gv[4] = 0.5f * dy * dy * dsig;
-        gv[5] = w * dCr;
-        gv[6] = w * dCg;
-        gv[7] = w * dCb;
-        gv[8] = active ? araw[j] / fmaxf(op, 1e-12f) * dalpha : 0.0f;
-        gv[9] = w * dD;
-        suffix += w * e;
-#pragma unroll
-        for (int v = 0; v < NGRAD; ++v) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) gv[v] += __shfl_xor_sync(FULL, gv[v], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int v = 0; v < NGRAD; ++v) pw[v] = gv[v];
-        }
+      for (int hi = SEG - 2; hi >= 0; hi -= GROUP) {
+        walk_group<GROUP>(rows, sg * SEG, hi, a, ti, q, suffix, pw, lane);
       }
     }
     __syncthreads();
-    // sum the per-warp partials in a fixed order; channel-major writes
+    // sum the per-warp partials in a fixed order; channel-major writes, with
+    // zeros past the real gaussians and in the pad channels
     for (int idx = tid; idx < C_PACK * CHUNK; idx += P) {
       const int v = idx / CHUNK;
       const int i = idx % CHUNK;
       float acc = 0.0f;
-      if (v < NGRAD) {
+      if (v < NGRAD && i < n_real) {
 #pragma unroll
         for (int wp = 0; wp < NWARP; ++wp) acc += part[((size_t)wp * CHUNK + i) * NGRAD + v];
       }
@@ -263,14 +372,14 @@ extern "C" int tsp_composite_fwd(const float* packed, const int* counts, float* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int tsp_composite_bwd(const float* packed, const float* gout, const float* tstart,
-                                 const float* t_final, float* dpacked, int T, int K, int tx,
-                                 void* stream) {
+extern "C" int tsp_composite_bwd(const float* packed, const int* counts, const float* gout,
+                                 const float* tstart, const float* t_final, float* dpacked,
+                                 int T, int K, int tx, void* stream) {
   if (T <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   composite_bwd_kernel<<<T, P, BWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      packed, gout, tstart, t_final, dpacked, T, K, tx);
+      packed, counts, gout, tstart, t_final, dpacked, T, K, tx);
   return (int)cudaGetLastError();
 }

@@ -173,7 +173,7 @@ def _lib() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tsp_composite_fwd.argtypes = [vp, vp, vp, vp, i, i, i, vp]
     lib.tsp_composite_fwd.restype = i
-    lib.tsp_composite_bwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.tsp_composite_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
     lib.tsp_composite_bwd.restype = i
     return lib
 
@@ -213,21 +213,24 @@ def composite_fwd_cuda(packed: torch.Tensor, counts: torch.Tensor,
     return out, tstart
 
 
-def composite_bwd_cuda(packed: torch.Tensor, gout: torch.Tensor, tstart: torch.Tensor,
-                       t_final: torch.Tensor, tx: int) -> torch.Tensor:
-    """Launch the backward kernel -> dpacked (16, T, K)."""
+def composite_bwd_cuda(packed: torch.Tensor, counts: torch.Tensor, gout: torch.Tensor,
+                       tstart: torch.Tensor, t_final: torch.Tensor, tx: int) -> torch.Tensor:
+    """Launch the backward kernel -> dpacked (16, T, K). counts (T,) int32 cuts
+    each tile's sweep at its pair count; the slots past it must be the zero
+    sentinel row, and come back as zeros."""
     c, t_total, k = packed.shape
     if c != C_PACK or k % CHUNK:
         raise ValueError(f"packed must be (16, T, K) with K a multiple of {CHUNK}")
     _check("packed", packed, torch.float32, (C_PACK, t_total, k))
+    _check("counts", counts, torch.int32, (t_total,))
     _check("gout", gout, torch.float32, (t_total, 8, P))
     _check("tstart", tstart, torch.float32, (t_total, (k // CHUNK) * P))
     _check("t_final", t_final, torch.float32, (t_total, P))
     dpacked = torch.empty_like(packed)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = _lib().tsp_composite_bwd(packed.data_ptr(), gout.data_ptr(), tstart.data_ptr(),
-                                   t_final.data_ptr(), dpacked.data_ptr(), t_total, k,
-                                   tx, stream)
+    err = _lib().tsp_composite_bwd(packed.data_ptr(), counts.data_ptr(), gout.data_ptr(),
+                                   tstart.data_ptr(), t_final.data_ptr(), dpacked.data_ptr(),
+                                   t_total, k, tx, stream)
     _launch_check(err, "composite_bwd")
     LAUNCHES["composite_bwd"] += 1
     return dpacked
@@ -241,16 +244,17 @@ class _CompositeTiles(torch.autograd.Function):
         else:
             out, tstart = composite_tiles_plain(packed, counts, tx, ty)
         # T_final is saved directly; the backward needs it for the dA term
-        ctx.save_for_backward(packed, tstart, 1.0 - out[:, 3, :])
+        ctx.save_for_backward(packed, counts, tstart, 1.0 - out[:, 3, :])
         ctx.tx = tx
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        packed, tstart, t_final = ctx.saved_tensors
+        packed, counts, tstart, t_final = ctx.saved_tensors
         gout = gout.contiguous()
         if packed.is_cuda:
-            dpacked = composite_bwd_cuda(packed, gout, tstart, t_final.contiguous(), ctx.tx)
+            dpacked = composite_bwd_cuda(packed, counts, gout, tstart, t_final.contiguous(),
+                                         ctx.tx)
         else:
             dpacked = composite_tiles_bwd_plain(packed, gout, tstart, t_final, ctx.tx)
         return dpacked, None, None, None

@@ -63,18 +63,27 @@ def synthetic_capture(n: int = 60, width: int = 64, height: int = 48, focal: flo
     return viewmats, intrin, images, pts, colors
 
 
+# Pair counts for build_packed's 12-tile fixture that put a tile on each edge
+# of the backward's sweep: empty, one pair, both sides of a 16-gaussian
+# segment and of a 128-gaussian chunk, and one short of K = 256.
+RAGGED_COUNTS = (0, 1, 15, 16, 17, 127, 128, 129, 255, 256, 64, 200)
+
+
 def build_packed(rng: np.random.Generator, t_total: int, k: int, width_tiles: int,
-                 tile_size: int = 16):
+                 tile_size: int = 16, counts=None):
     """Packed (16, T, K) f32 tensor and (T,) int32 pair counts with mixed
     regimes per tile (the numpy twin of scripts/check_kernel_parity.py's):
     tile 1 near-empty (4 pairs), tile 2 saturating in its first chunk, tile 3
-    never saturating, the rest mid-opacity."""
+    never saturating, the rest mid-opacity. `counts` (T,) overrides the pair
+    counts (K each, 4 for tile 1); the slots past a tile's count stay the
+    zero sentinel row."""
     feat = np.zeros((16, t_total, k), np.float32)
-    counts = []
+    if counts is None:
+        counts = [4 if t == 1 else k for t in range(t_total)]
     for t in range(t_total):
         tx0 = (t % width_tiles) * tile_size
         ty0 = (t // width_tiles) * tile_size
-        n_g = 4 if t == 1 else k
+        n_g = int(counts[t])
         mx = tx0 + rng.uniform(-2, tile_size + 2, n_g)
         my = ty0 + rng.uniform(-2, tile_size + 2, n_g)
         if t == 2:
@@ -97,5 +106,4 @@ def build_packed(rng: np.random.Generator, t_total: int, k: int, width_tiles: in
         feat[5:8, t, :n_g] = rng.uniform(0, 1, (3, n_g))
         feat[8, t, :n_g] = op
         feat[9, t, :n_g] = rng.uniform(0.5, 8.0, n_g)
-        counts.append(n_g)
     return feat, np.asarray(counts, np.int32)
