@@ -6,14 +6,16 @@ Needs one NVIDIA GPU and the CUDA toolkit (nvcc); imports nothing of JAX or of
 the JAX package. Phases, each of which raises on failure:
 
 1. card: name and power limit, as nvidia-smi reports them;
-2. build: compile the compositing kernels from tpu_splat_torch/csrc with nvcc;
+2. build: compile the compositing kernels from tpu_splat_torch/csrc with nvcc,
+   print each kernel's registers, shared memory and spills, and fail on a spill;
 3. kernels against their plain PyTorch versions, on the card: the
    check_kernel_parity fixture (near-empty, saturating and never-saturating
    tiles), the same fixture with ragged pair counts (RAGGED_COUNTS: an empty
    tile, and tiles on the edges of the backward's 16-gaussian segments and
    128-gaussian chunks) and packed tensors from a real 1280x720 binning at
    K=256 and K=1024; forward and tstart max abs <= 2e-5 with the same
-   chunks reached, counts-bounded sweep bit-identical, backward
+   chunks reached, counts-bounded sweep bit-identical, two forward launches
+   bit-identical (out and tstart), backward
    max|d| / max|g| <= 5e-5 fed by the plain forward's checkpoints and by
    the kernel's own, two backward launches bit-identical, and every
    gradient slot past its tile's count exactly 0; kernel and plain times,
@@ -36,6 +38,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -125,6 +128,7 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
     t_total, k = packed.shape[1], packed.shape[2]
     n_chunks = k // cr.CHUNK
     out_k, ts_k = cr.composite_fwd_cuda(packed, counts, tx)
+    out_again, ts_again = cr.composite_fwd_cuda(packed, counts, tx)
     out_p, ts_p = cr.composite_tiles_plain(packed, counts, tx, ty)
     full = torch.full_like(counts, k)
     out_full, _ = cr.composite_fwd_cuda(packed, full, tx)
@@ -143,6 +147,8 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
         raise AssertionError(f"{name}: tstart max abs {ts_err:.3e} > {FWD_BAR}")
     if not torch.equal(out_k[:, :5], out_full[:, :5]):
         raise AssertionError(f"{name}: counts-bounded forward differs from the full sweep")
+    if not (torch.equal(out_k, out_again) and torch.equal(ts_k, ts_again)):
+        raise AssertionError(f"{name}: two forward launches on one input differ")
     if not torch.isfinite(out_k).all():
         raise AssertionError(f"{name}: non-finite forward output")
 
@@ -171,9 +177,9 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
         raise AssertionError(f"{name}: backward nonzero in a slot past its tile's count")
     log(f"[kernels] {name}: T={t_total} K={k} fwd max abs {fwd_err:.3e}, tstart "
         f"{ts_err:.3e} over {int(reached_k.sum())} reached chunks, counts-bounded "
-        f"bit-identical, bwd max abs {bwd_abs:.3e} rel {bwd_rel:.3e} (from the kernel's "
-        f"tstart: rel {chain_rel:.3e}), two launches bit-identical, {n_past} slots past "
-        f"the counts all 0")
+        f"bit-identical, two forward launches bit-identical, bwd max abs {bwd_abs:.3e} "
+        f"rel {bwd_rel:.3e} (from the kernel's tstart: rel {chain_rel:.3e}), two launches "
+        f"bit-identical, {n_past} slots past the counts all 0")
     res = {"fwd_err": fwd_err, "bwd_abs": bwd_abs, "bwd_rel": bwd_rel}
     if not timing_reps:
         return res
@@ -373,8 +379,11 @@ def main() -> int:
     lib_path, build_log = kernel_build.build("composite")
     log(f"[build] {os.path.relpath(lib_path, ROOT)} in {time.time() - t0:.1f} s")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        keys = ("entry function", "registers", "spill")
+        if any(key in line for key in keys) or "error" in line.lower():
             log(f"[build] {line.strip()}")
+        if re.search(r"\b[1-9]\d* bytes spill", line):
+            raise AssertionError(f"a kernel spills registers: {line.strip()}")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(1)

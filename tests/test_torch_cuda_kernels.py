@@ -27,18 +27,21 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
 def test_kernels_match_plain_versions(cuda_device, ragged):
-    """Forward and tstart max abs 2e-5 with the same chunks reached,
-    counts-bounded sweep bit-identical, backward max|d| / max|g| 5e-5 fed by
-    the plain and by the kernel's own tstart, two backward launches
-    bit-identical and exactly 0 past each tile's count, and the
-    autograd.Function launches both kernels. The ragged case puts tiles on
-    the backward's segment and chunk edges (RAGGED_COUNTS)."""
+    """Two forward launches bit-identical, forward and tstart max abs 2e-5
+    with the same chunks reached, counts-bounded sweep bit-identical,
+    backward max|d| / max|g| 5e-5 fed by the plain and by the kernel's own
+    tstart, two backward launches bit-identical and exactly 0 past each
+    tile's count, and the autograd.Function launches both kernels. The
+    ragged case puts tiles on the backward's segment and chunk edges
+    (RAGGED_COUNTS)."""
     rng = np.random.default_rng(1)
     packed_np, counts_np = build_packed(rng, TX * TY, 2 * cr.CHUNK, TX,
                                         counts=RAGGED_COUNTS if ragged else None)
     packed = torch.from_numpy(packed_np).to(cuda_device)
     counts = torch.from_numpy(counts_np).to(cuda_device)
     out_k, ts_k = cr.composite_fwd_cuda(packed, counts, TX)
+    out_again, ts_again = cr.composite_fwd_cuda(packed, counts, TX)
+    assert torch.equal(out_k, out_again) and torch.equal(ts_k, ts_again)
     out_p, ts_p = cr.composite_tiles_plain(packed, counts, TX, TY)
     assert float((out_k[:, :5] - out_p[:, :5]).abs().max()) <= 2e-5
     assert float((ts_k - ts_p).abs().max()) <= 2e-5
@@ -64,3 +67,34 @@ def test_kernels_match_plain_versions(cuda_device, ragged):
     assert cr.LAUNCHES["composite_fwd"] == before["composite_fwd"] + 1
     assert cr.LAUNCHES["composite_bwd"] == before["composite_bwd"] + 1
     assert float((p.grad - g_p).abs().max()) / g_scale <= 5e-5
+
+
+def saturating_packed(rng, k, count):
+    """build_packed's fixture at K=k with tile 2 holding `count` wide, nearly
+    opaque gaussians that cover every pixel: its tile-wide exit fires after
+    chunk 0 although its count reaches further chunks."""
+    counts = [4 if t == 1 else count if t == 2 else k for t in range(TX * TY)]
+    packed, counts = build_packed(rng, TX * TY, k, TX, counts=counts)
+    packed[2:5, 2, :count] = np.array([1 / 900, 0.0, 1 / 900], np.float32)[:, None]
+    packed[8, 2, :count] = 0.99
+    return packed, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [129, 300, 512])
+def test_forward_exit_after_first_of_several_chunks(cuda_device, count):
+    """A tile whose exit fires after chunk 0 while its count reaches chunks
+    1-3 (K=512): the kernel reaches the same chunks as the plain version,
+    agrees with it to 2e-5, and two launches give the same bits."""
+    packed_np, counts_np = saturating_packed(np.random.default_rng(3), 4 * cr.CHUNK, count)
+    packed = torch.from_numpy(packed_np).to(cuda_device)
+    counts = torch.from_numpy(counts_np).to(cuda_device)
+    out_k, ts_k = cr.composite_fwd_cuda(packed, counts, TX)
+    out_p, ts_p = cr.composite_tiles_plain(packed, counts, TX, TY)
+    reached = [ts.reshape(TX * TY, -1, cr.P).amax(dim=2) > 0 for ts in (ts_k, ts_p)]
+    assert reached[1][2].tolist() == [True, False, False, False]
+    assert torch.equal(*reached)
+    assert float((out_k[:, :5] - out_p[:, :5]).abs().max()) <= 2e-5
+    assert float((ts_k - ts_p).abs().max()) <= 2e-5
+    out_again, ts_again = cr.composite_fwd_cuda(packed, counts, TX)
+    assert torch.equal(out_k, out_again) and torch.equal(ts_k, ts_again)

@@ -135,11 +135,10 @@ def test_plain_backward_matches_reference_grad_and_autograd(packed_fixture):
     assert torch.equal(p2.grad, g_analytic)
 
 
-def test_slots_past_counts_are_sentinel_with_zero_gradient():
-    """The premise of the backward kernel's cut at each tile's pair count: on
-    a pack_tiles output every slot at or past counts[t] is the zero sentinel
-    row, and the plain backward's gradient there is exactly 0."""
-    rng = np.random.default_rng(9)
+def packed_tiles(rng):
+    """A pack_tiles output (300 round gaussians, 4x3 tiles, K=256) whose tile
+    counts are all below K and not all 0, and the mask of its slots at or
+    past each tile's count."""
     n, w, h, k = 300, TX * TS, TY * TS, 2 * cr.CHUNK
     scale = rng.uniform(1.0, 4.0, n)
     means2d = rng.uniform([-6.0, -6.0], [w + 6.0, h + 6.0], (n, 2))
@@ -149,10 +148,33 @@ def test_slots_past_counts_are_sentinel_with_zero_gradient():
     packed, counts, _ = tras.pack_tiles(*(torch.from_numpy(a.astype(np.float32)) for a in args),
                                         w, h, TS, k)
     assert bool((counts > 0).any()) and bool((counts < k).all())
-    past = torch.arange(k)[None, :] >= counts[:, None].long()
+    return packed, counts, torch.arange(k)[None, :] >= counts[:, None].long()
+
+
+def test_slots_past_counts_are_sentinel_with_zero_gradient():
+    """The premise of the backward kernel's cut at each tile's pair count: on
+    a pack_tiles output every slot at or past counts[t] is the zero sentinel
+    row, and the plain backward's gradient there is exactly 0."""
+    rng = np.random.default_rng(9)
+    packed, counts, past = packed_tiles(rng)
     assert bool((packed[:, past] == 0).all())
     out, tstart = cr.composite_tiles_plain(packed, counts, TX, TY)
     gout = torch.from_numpy(rng.standard_normal((TX * TY, 8, cr.P)).astype(np.float32))
     g = cr.composite_tiles_bwd_plain(packed, gout, tstart, 1.0 - out[:, 3], TX)
     assert bool((g[:, past] == 0).all())
     assert bool((g[:, ~past] != 0).any())
+
+
+def test_slots_past_counts_have_zero_alpha_and_change_no_bit():
+    """The premise of the forward kernel's cut at each tile's pair count: on a
+    pack_tiles output every slot at or past counts[t] has alpha exactly 0 at
+    every pixel, and sweeping those slots (counts raised to K) gives the same
+    out bit for bit."""
+    packed, counts, past = packed_tiles(np.random.default_rng(9))
+    px, py = cr._pixel_coords(TX * TY, TX, packed.device)
+    alpha = cr._chunk_alpha(packed.permute(1, 2, 0), px, py)[0]  # (T, K, P)
+    assert bool((alpha[past] == 0).all())
+    assert bool((alpha[~past] > 0).any())
+    bounded, _ = cr.composite_tiles_plain(packed, counts, TX, TY)
+    full, _ = cr.composite_tiles_plain(packed, torch.full_like(counts, packed.shape[2]), TX, TY)
+    assert torch.equal(bounded, full)
