@@ -25,12 +25,23 @@ the JAX package. Phases, each of which raises on failure:
    from CUDA events after a warm-up, finite loss;
 5. end to end: train_splat on a small seeded scene through one refine pass
    (the refine must change the gaussian count), then .ply/.spz written,
-   reloaded and counted.
+   reloaded and counted;
+6. SfM at a real size: run_sfm on 16 frames of 1280x720, rendered by the
+   port from a seeded textured scene on a forward walk, at the runner's
+   720p configuration (4096 features, 4 octaves, no upsample, sequential
+   matching, which is exhaustive at 16 frames) with no focal given, so
+   self-calibration runs. Prints the registered and point counts, the final
+   BA rms, the camera-centre RMSE against the true poses after a similarity
+   alignment (as a fraction of the walk's span), each mapper phase's
+   seconds and the batched torch.linalg calls' times; raises unless at least
+   N - 2 frames register, every pose and point is finite, and two identical
+   bundle_adjust calls on the result agree bit for bit.
 
-The launch counters are zeroed just before each of the two main paths
+The launch counters are zeroed just before each of the two training paths
 (phases 4 and 5) and read just after it; both kernels must have launched in
-each. The line before the last is the {"kernels": [...]} record, with phase
-4's launches; the last line is {"ok": true, "device": {...}}.
+each. SfM holds no hand-written kernel. The line before the last is the
+{"kernels": [...]} record, with phase 4's launches; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,8 +56,9 @@ import time
 
 import numpy as np
 
-from tpu_splat_torch.testing import (RAGGED_COUNTS, build_packed, ring_viewmats,
-                                     synthetic_capture)
+from tpu_splat_torch.testing import (RAGGED_COUNTS, build_packed, centre_rmse,
+                                     render_capture, ring_viewmats, synthetic_capture,
+                                     textured_scene, walk_viewmats)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -63,6 +75,7 @@ F32_OPS_PER_S = 67e12
 FWD_OPS_PER_PAIR = 30
 BWD_OPS_PER_PAIR = 66
 FWD_BAR, BWD_BAR = 2e-5, 5e-5
+WALK_SPAN = 5.0  # testing.walk_viewmats' default: phase 6's capture
 
 
 def log(msg: str) -> None:
@@ -349,6 +362,133 @@ def main_path_launches(path: str) -> dict:
     return launches
 
 
+def sfm_capture(n_views, width, height, focal, device):
+    """testing.textured_scene's 100K-gaussian rock, ground and back wall
+    rendered by the port on a forward walk of n_views frames;
+    (world-to-camera matrices, images)."""
+    vms = walk_viewmats(n_views)
+    return vms, render_capture(textured_scene(np.random.default_rng(3)), vms, focal, width,
+                               height, max_per_tile=1024, device=device)
+
+
+def ba_repeat(scene, device, rng):
+    """rms and seconds of two identical bundle_adjust calls on a problem made
+    from the reconstruction (every point seen by every registered camera it
+    lands in front of, 0.5 px of noise, poses and points perturbed). Its
+    segment sums run in a fixed order, so the two must agree bit for bit."""
+    import torch
+
+    from tpu_splat_torch.sfm.ba import BAProblem, bundle_adjust
+
+    c2w = np.asarray(scene.cameras.camtoworlds, np.float32)
+    w2c = np.linalg.inv(c2w).astype(np.float32)
+    pts = np.asarray(scene.points, np.float32)
+    fx = float(np.asarray(scene.cameras.fx)[0])
+    pc = np.einsum("cij,pj->cpi", w2c[:, :3, :3], pts) + w2c[:, None, :3, 3]
+    uv = pc[..., :2] / np.maximum(pc[..., 2:], 1e-6)
+    seen = (pc[..., 2] > 0.1) & (np.abs(uv[..., 0]) < 0.6) & (np.abs(uv[..., 1]) < 0.35)
+    oc, op = np.nonzero(seen)
+    obs = uv[oc, op] + rng.normal(0, 0.5 / fx, (len(oc), 2))
+    t = lambda a, d=torch.float32: torch.as_tensor(np.asarray(a), dtype=d, device=device)  # noqa: E731
+    prob = BAProblem(t(w2c[:, :3, :3]), t(w2c[:, :3, 3] + rng.normal(0, 0.01, (len(w2c), 3))),
+                     t(pts + rng.normal(0, 0.01, pts.shape)), t(oc, torch.long),
+                     t(op, torch.long), t(obs), torch.ones(len(oc), dtype=torch.bool,
+                                                           device=device))
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rms = float(bundle_adjust(prob, huber_delta=4.0 / fx, outer_iters=30, cg_iters=48)[3])
+        out.append((rms, time.time() - t0))
+    return len(oc), out
+
+
+def linalg_times(device) -> dict:
+    """ms of the batched torch.linalg calls SfM makes, at phase-6 batch sizes
+    (CUDA events, 5 calls after a warm-up). cuSOLVER's batched eigh refuses
+    32768 4x4 matrices, so geometry._smallest_right_vector4 slices at 8192;
+    it is timed whole on a 32768-track triangulation batch."""
+    import torch
+
+    from tpu_splat_torch.sfm.geometry import _smallest_right_vector4
+
+    g = torch.Generator(device=device).manual_seed(0)
+    r = lambda *shape: torch.randn(*shape, device=device, generator=g)  # noqa: E731
+    a9, a3, a12 = r(32 * 512, 9, 9), r(32 * 512, 3, 3), r(256, 12, 12)
+    gram = r(8192, 4, 4)
+    gram = gram @ gram.mT
+    dlt = r(32768, 16, 4)
+    h6 = r(32 * 129, 6, 6)
+    h6 = h6 @ h6.mT + torch.eye(6, device=device)
+    b6 = r(32 * 129, 6, 1)
+    return {
+        "svd (16384, 9, 9) [8-point, 32 pairs x 512]": time_ms(lambda: torch.linalg.svd(a9), 5),
+        "svd (16384, 3, 3) [essential projection]": time_ms(lambda: torch.linalg.svd(a3), 5),
+        "svd (256, 12, 12) [PnP DLT]": time_ms(lambda: torch.linalg.svd(a12), 5),
+        "eigh (8192, 4, 4) [one triangulation slice]": time_ms(
+            lambda: torch.linalg.eigh(gram), 5),
+        "_smallest_right_vector4 (32768, 16, 4) [QR + 4 eigh slices + inverse iteration]":
+            time_ms(lambda: _smallest_right_vector4(dlt), 5),
+        "solve_ex (4128, 6, 6) [polish GN, 32 pairs x 129]": time_ms(
+            lambda: torch.linalg.solve_ex(h6, b6), 5),
+        "det (16384, 3, 3)": time_ms(lambda: torch.linalg.det(a3), 5),
+    }
+
+
+def sfm_phase(dev, rng) -> None:
+    """Phase 6 (see the module docstring)."""
+    from tpu_splat_torch.gs import cuda_raster as cr
+    from tpu_splat_torch.sfm.features import FeatureConfig
+    from tpu_splat_torch.sfm.mapper import MapperConfig, run_sfm
+
+    n_views, width, height, focal = 16, 1280, 720, 1100.0
+    t0 = time.time()
+    vms, images = sfm_capture(n_views, width, height, focal, dev)
+    log(f"[sfm] capture: {n_views} frames {width}x{height}, true fx {focal}, rendered in "
+        f"{time.time() - t0:.1f} s")
+    cfg = MapperConfig(feature=FeatureConfig(max_features=4096, num_octaves=4,
+                                             upsample_first=False),
+                       matching_method="sequential")
+    logs = []
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "sfm_log.txt")
+    with open(log_path, "w") as f:
+        def sfm_log(line):  # the mapper's log, kept whole in a file
+            logs.append(line)
+            f.write(line + "\n")
+            f.flush()
+
+        cr.reset_launch_counts()
+        t0 = time.time()
+        scene = run_sfm(images, cfg, log_fn=sfm_log, device=dev)
+        sfm_s = time.time() - t0
+    log(f"[sfm] run_sfm path launches of the compositing kernels: {dict(cr.LAUNCHES)} "
+        f"(SfM holds no hand-written kernel); its log: {os.path.relpath(log_path, ROOT)}")
+    feat_line = next((s for s in logs if s.startswith("features:")), "")
+    ba_lines = [s for s in logs if s.startswith("BA:")]
+    timer_line = [s for s in logs if s.startswith("sfm timers")][-1]
+    reg = np.asarray(scene.registered)
+    c2w = np.asarray(scene.cameras.camtoworlds)
+    pts = np.asarray(scene.points)
+    if not (np.isfinite(c2w).all() and np.isfinite(pts).all()):
+        raise AssertionError("run_sfm returned a non-finite pose or point")
+    if int(reg.sum()) < n_views - 2:
+        raise AssertionError(f"run_sfm registered {int(reg.sum())}/{n_views} frames")
+    rmse = centre_rmse(scene, vms) / WALK_SPAN
+    log(f"[sfm] {feat_line}; {len(ba_lines)} BA calls")
+    log(f"[sfm] N={n_views} registered={int(reg.sum())} points={scene.num_points} "
+        f"final {ba_lines[-1] if ba_lines else 'no BA'}; fx {float(scene.cameras.fx[0]):.1f} "
+        f"(true {focal}); camera-centre RMSE {rmse:.5f} of the span; run_sfm {sfm_s:.1f} s")
+    log(f"[sfm] {timer_line}")
+    n_obs, runs = ba_repeat(scene, dev, rng)
+    log(f"[sfm] bundle_adjust twice on one {n_obs}-observation problem (30 x 48): rms "
+        + ", ".join(f"{r!r} in {t:.2f} s" for r, t in runs))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError("two identical bundle_adjust calls differ")
+    for name, ms in linalg_times(dev).items():
+        log(f"[sfm] linalg {name}: {ms:.3f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -482,6 +622,9 @@ def main() -> int:
         f"{cloud.num_points} gaussians, held-out psnr {metrics0['psnr']:.3f} -> "
         f"{metrics5['psnr']:.3f} "
         f"over {int(metrics5['eval_views'])} views; .ply/.spz reloaded with {n_ply} gaussians")
+
+    # 6. SfM at a real size
+    sfm_phase(dev, np.random.default_rng(6))
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

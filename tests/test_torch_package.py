@@ -18,6 +18,8 @@ from tpu_splat_torch.gs import pipeline as tpipe
 from tpu_splat_torch.gs import rasterize as tras
 from tpu_splat_torch.gs import render as trend
 from tpu_splat_torch.gs import trainer as ttrainer
+from tpu_splat_torch.sfm.features import FeatureConfig, extract_features_batch
+from tpu_splat_torch.sfm.mapper import run_sfm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "tpu_splat")
@@ -33,7 +35,10 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference_package():
     bad = []
     files = _port_files()
-    assert len(files) > 15
+    # the SfM slice's six modules are scanned too
+    sfm = {"geometry", "features", "matching", "ba", "intrinsics", "mapper"}
+    assert sfm <= {os.path.basename(f)[:-3] for f in files if f"{os.sep}sfm{os.sep}" in f}
+    assert len(files) > 25
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -73,9 +78,16 @@ def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for():
     scene = SfMScene(cams, pts, np.zeros((n, 3)), np.zeros(n), np.ones(n), np.ones(2, bool))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.train_splat(scene, imgs, max_steps=1)
+    fcfg = FeatureConfig(max_features=16, num_octaves=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_features_batch(np.zeros((1, h, w), np.float32), fcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sfm(imgs)
     # asked for, the CPU works
     out = tras.rasterize(z(n, 2), z(n, 3), z(n, 3), z(n), z(n), z(n), w, h, device="cpu")
     assert out.color.shape == (h, w, 3)
+    feats = extract_features_batch(np.zeros((1, h, w), np.float32), fcfg, device="cpu")
+    assert feats.descriptor.shape == (1, 16, 128) and not feats.valid.any()
 
 
 def test_convert_round_trips_params_and_adam_state():

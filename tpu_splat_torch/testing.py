@@ -107,3 +107,86 @@ def build_packed(rng: np.random.Generator, t_total: int, k: int, width_tiles: in
         feat[8, t, :n_g] = op
         feat[9, t, :n_g] = rng.uniform(0.5, 8.0, n_g)
     return feat, np.asarray(counts, np.int32)
+
+
+def walk_viewmats(n_views: int, span: float = 5.0, depth: float = 4.2) -> np.ndarray:
+    """(n_views, 4, 4) world-to-camera matrices of a forward-facing lateral
+    walk: the eye slides along x at z = -depth, looking at (0, 0.3, 0)."""
+    mats = []
+    for x in np.linspace(-span / 2, span / 2, n_views):
+        eye = np.array([x, 0.3, -depth])
+        z = np.array([0.0, 0.3, 0.0]) - eye
+        z /= np.linalg.norm(z)
+        xax = np.cross(np.array([0.0, -1.0, 0.0]), z)
+        xax /= np.linalg.norm(xax)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.stack([xax, np.cross(z, xax), z])
+        m[:3, 3] = -m[:3, :3] @ eye
+        mats.append(m)
+    return np.stack(mats)
+
+
+def textured_scene(rng: np.random.Generator, n_rock: int = 20_000, n_plane: int = 40_000,
+                   n_wall: int = 40_000, sizes: tuple = (0.01, 0.06), bimodal: bool = False):
+    """A textured scene for SfM as numpy gaussian parameters (means,
+    log-scales, quats, opacity logits, sh0, shN): a bumpy 'rock' on a ground
+    plane (+y down) before a back wall, made of blobs whose sizes are
+    log-uniform in `sizes` (metres) and whose colours are uniform, or, with
+    `bimodal`, dark or light with a little jitter. The defaults are
+    chip_smoke.py's phase-6 scene: texture distinctive at every scale."""
+    dirs = rng.normal(size=(n_rock, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = (1.0 + 0.25 * np.sin(5 * dirs[:, 0]) * np.cos(4 * dirs[:, 1])
+              + 0.05 * rng.normal(size=n_rock))
+    means = np.concatenate([
+        dirs * radius[:, None],
+        np.stack([rng.uniform(-3, 3, n_plane),
+                  np.full(n_plane, 1.3) + rng.normal(0, 0.02, n_plane),
+                  rng.uniform(-3, 3, n_plane)], axis=1),
+        np.stack([rng.uniform(-6, 6, n_wall), rng.uniform(-3, 1.3, n_wall),
+                  np.full(n_wall, 3.5) + rng.normal(0, 0.02, n_wall)], axis=1)])
+    n = len(means)
+    log_s = rng.uniform(np.log(sizes[0]), np.log(sizes[1]), (n, 1))
+    if bimodal:
+        colors = np.clip(rng.choice([0.1, 0.9], size=(n, 1))
+                         + rng.uniform(-0.1, 0.1, (n, 3)), 0, 1)
+    else:
+        colors = rng.uniform(0, 1, (n, 3))
+    return [means.astype(np.float32), np.repeat(log_s, 3, 1).astype(np.float32),
+            np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1)),
+            np.full((n,), 4.0, np.float32), ((colors - 0.5) / 0.2820948).astype(np.float32),
+            np.zeros((n, 0, 3), np.float32)]
+
+
+def render_capture(scene, viewmats: np.ndarray, focal: float, width: int, height: int,
+                   background: float = 0.7, max_per_tile: int = 256, device="cpu") -> np.ndarray:
+    """(V, H, W, 3) f32 images of `textured_scene` parameters rendered by the
+    port from each world-to-camera matrix, principal point at the centre."""
+    import torch
+
+    from tpu_splat_torch.gs.render import render_view
+
+    with torch.no_grad():
+        params = [torch.from_numpy(a).to(device) for a in scene]
+        bg = torch.full((3,), background, device=device)
+        return np.stack([
+            render_view(*params, torch.from_numpy(vm).to(device), focal, focal, width / 2,
+                        height / 2, width, height, sh_degree=0, background=bg,
+                        max_per_tile=max_per_tile, device=device).color.cpu().numpy()
+            for vm in viewmats])
+
+
+def centre_rmse(scene, viewmats: np.ndarray) -> float:
+    """RMSE, in world units, of an SfMScene's registered camera centres
+    against the true ones (world-to-camera `viewmats`, one per input image)
+    after a similarity alignment."""
+    import torch
+
+    from tpu_splat_torch.sfm.geometry import umeyama_alignment
+
+    reg = np.asarray(scene.registered)
+    gt = np.stack([-vm[:3, :3].T @ vm[:3, 3] for vm in viewmats])[reg].astype(np.float32)
+    rec = np.asarray(scene.cameras.camtoworlds)[:, :3, 3].astype(np.float32)
+    s, R, t = umeyama_alignment(torch.from_numpy(rec), torch.from_numpy(gt))
+    aligned = float(s) * rec @ R.numpy().T + t.numpy()
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
