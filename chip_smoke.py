@@ -22,7 +22,10 @@ the JAX package. Phases, each of which raises on failure:
    and bounds counted over the real pairs of the reached chunks;
 4. full width: train_step on bench.py's workload (2^19 capacity, 400K alive,
    1280x720, SH degree 3, 8 ring views, no random background, K=256), ms/step
-   from CUDA events after a warm-up, finite loss;
+   from CUDA events after a warm-up, finite loss; two identical train_steps
+   from one state must agree bit for bit in every parameter, Adam moment and
+   densify accumulator (also run, for the record, with the parent's atomic
+   pack-gather backward, which is timed beside the new one);
 5. end to end: train_splat on a small seeded scene through one refine pass
    (the refine must change the gaussian count), then .ply/.spz written,
    reloaded and counted;
@@ -35,11 +38,22 @@ the JAX package. Phases, each of which raises on failure:
    alignment (as a fraction of the walk's span), each mapper phase's
    seconds and the batched torch.linalg calls' times; raises unless at least
    N - 2 frames register, every pose and point is finite, and two identical
-   bundle_adjust calls on the result agree bit for bit.
+   bundle_adjust calls on the result agree bit for bit;
+7. a default job: phase 6's frames as 8-bit PNGs in a .zip, run by the
+   port's CLI (`run`, on the card) with the reference's default job JSON but
+   for maxSteps (600, past the first refine pass): ingest, blur filter,
+   self-calibrated SfM, undistortion, the COLMAP model and database,
+   training, .ply and the rotated .spz, the artifact sink. Raises unless the
+   job completes with >= 14 frames registered, every default artifact is
+   present and reads back (the database holds every frame, the text and
+   binary models hold the registered ones, the .ply and .spz the trained
+   gaussian count) and every pose, point and gaussian is finite. Prints each
+   component's seconds, the mapper's timers, the self-calibrated k1, the
+   training's step time and held-out PSNR.
 
-The launch counters are zeroed just before each of the two training paths
-(phases 4 and 5) and read just after it; both kernels must have launched in
-each. SfM holds no hand-written kernel. The line before the last is the
+The launch counters are zeroed just before each of the three training paths
+(phases 4, 5 and 7) and read just after it; both kernels must have launched
+in each. SfM holds no hand-written kernel. The line before the last is the
 {"kernels": [...]} record, with phase 4's launches; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -76,6 +90,7 @@ FWD_OPS_PER_PAIR = 30
 BWD_OPS_PER_PAIR = 66
 FWD_BAR, BWD_BAR = 2e-5, 5e-5
 WALK_SPAN = 5.0  # testing.walk_viewmats' default: phase 6's capture
+JOB_STEPS = 600  # phase 7: past the first refine pass, at step 500
 
 
 def log(msg: str) -> None:
@@ -310,8 +325,80 @@ def layer_times(params, viewmat, intrin, image, width, height, k) -> dict:
     }
 
 
-def real_packed(params, viewmat, intrin, width, height, k):
-    """The packed tensor the main path hands the kernels for one view."""
+def atomic_pack_gather_bwd(ctx, d_packed):
+    """The parent's rasterize._PackGather.backward: index_add_, which sums
+    duplicate indices with atomics on the card. Kept here only to time it
+    and to run the two-step check with it."""
+    import torch
+
+    gidx_ext, mid_order, big4_order, big8_order = ctx.saved_tensors[:4]
+    n = ctx.n
+    c = d_packed.shape[0]
+    k4, k8, km = big4_order.shape[0], big8_order.shape[0], mid_order.shape[0]
+    rows = d_packed.to(torch.bfloat16).to(torch.float32).reshape(c, -1).T.contiguous()
+    d_ext = torch.zeros((n + k4 + k8 + km + 1, c), dtype=torch.float32, device=d_packed.device)
+    d_ext.index_add_(0, gidx_ext.reshape(-1), rows)
+    d_feat = d_ext[:n].clone()
+    d_feat.index_add_(0, big4_order, d_ext[n:n + k4])
+    d_feat.index_add_(0, big8_order, d_ext[n + k4:n + k4 + k8])
+    d_feat.index_add_(0, mid_order, d_ext[n + k4 + k8:n + k4 + k8 + km])
+    return d_feat, None, None, None, None, None
+
+
+def repeat_step(step, state, i, pack_bwd=None):
+    """Two train_steps from one state (parameters, Adam moments, densify
+    accumulators) and one view; returns (name, max abs difference) of every
+    tensor of the two results that is not bit-identical. `pack_bwd` swaps in
+    another _PackGather.backward for the two steps."""
+    import torch
+
+    from tpu_splat_torch.gs import rasterize as ras
+
+    saved = ras._PackGather.backward
+    if pack_bwd is not None:
+        ras._PackGather.backward = staticmethod(pack_bwd)
+    try:
+        (a, _), (b, _) = step(i, state), step(i, state)
+    finally:
+        ras._PackGather.backward = saved
+    torch.cuda.synchronize()
+    pairs = [(f"param {k}", a[0][k], b[0][k]) for k in a[0]]
+    pairs += [(f"adam {m} {k}", getattr(a[1], m)[k], getattr(b[1], m)[k])
+              for m in ("mu", "nu") for k in a[1].mu]
+    pairs += [(f"densify {f}", getattr(a[2], f), getattr(b[2], f)) for f in a[2]._fields]
+    return [(name, float((x.float() - y.float()).abs().max())) for name, x, y in pairs
+            if not torch.equal(x, y)]
+
+
+def pack_gather_bwd_times(params, viewmat, intrin, width, height, k) -> dict:
+    """ms of _PackGather.backward alone at the main path's shapes: the
+    fixed-order sum through the inverse slot map against the parent's
+    index_add_."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from tpu_splat_torch.gs import rasterize as ras
+
+    with torch.no_grad():
+        packed, _, b = real_packed(params, viewmat, intrin, width, height, k, binning=True)
+        n = params["means"].shape[0]
+        sentinel = n + b.big4_order.shape[0] + b.big8_order.shape[0] + b.mid_order.shape[0]
+        gidx_ext = torch.where(b.gvalid, b.gidx, torch.full_like(b.gidx, sentinel))
+        ctx = SimpleNamespace(saved_tensors=(gidx_ext, b.mid_order, b.big4_order,
+                                             b.big8_order, b.pair_slot), n=n)
+        d_packed = torch.randn_like(packed)
+        return {
+            "pack gather bwd (fixed order)": time_ms(
+                lambda: ras._PackGather.backward(ctx, d_packed), 10),
+            "pack gather bwd (parent's index_add_)": time_ms(
+                lambda: atomic_pack_gather_bwd(ctx, d_packed), 10),
+        }
+
+
+def real_packed(params, viewmat, intrin, width, height, k, binning=False):
+    """The packed tensor the main path hands the kernels for one view, and
+    its counts (and the Binning, when asked for)."""
     import torch
 
     from tpu_splat_torch.gs.projection import project_gaussians
@@ -326,8 +413,10 @@ def real_packed(params, viewmat, intrin, width, height, k):
         dirs = torch.nn.functional.normalize(params["means"] - cam_pos, dim=-1)
         colors = sh_to_color(params["sh0"], params["shN"], dirs, 3)
         radii = torch.where(params["alive"], proj.radii, torch.zeros_like(proj.radii))
-        packed, counts, _ = pack_tiles(proj.means2d, proj.conics, colors, op, proj.depths,
+        packed, counts, b = pack_tiles(proj.means2d, proj.conics, colors, op, proj.depths,
                                        radii, width, height, 16, k)
+    if binning:
+        return packed.contiguous(), counts, b
     return packed.contiguous(), counts
 
 
@@ -435,8 +524,8 @@ def linalg_times(device) -> dict:
     }
 
 
-def sfm_phase(dev, rng) -> None:
-    """Phase 6 (see the module docstring)."""
+def sfm_phase(dev, rng) -> np.ndarray:
+    """Phase 6 (see the module docstring); returns its frames."""
     from tpu_splat_torch.gs import cuda_raster as cr
     from tpu_splat_torch.sfm.features import FeatureConfig
     from tpu_splat_torch.sfm.mapper import MapperConfig, run_sfm
@@ -487,6 +576,141 @@ def sfm_phase(dev, rng) -> None:
         raise AssertionError("two identical bundle_adjust calls differ")
     for name, ms in linalg_times(dev).items():
         log(f"[sfm] linalg {name}: {ms:.3f} ms")
+    return images
+
+
+def job_phase(images: np.ndarray, job_steps: int) -> None:
+    """Phase 7 (see the module docstring): a default job through the CLI."""
+    import contextlib
+    import io
+    import logging
+    import shutil
+    import zipfile
+
+    import cv2
+
+    from tpu_splat_torch.cli.main import main as cli_main
+    from tpu_splat_torch.core.ply import load_ply
+    from tpu_splat_torch.core.spz import load_spz
+    from tpu_splat_torch.gs import cuda_raster as cr
+    from tpu_splat_torch.sfm.colmap_db import read_database
+    from tpu_splat_torch.sfm.colmap_io import count_points3d, read_colmap_model
+
+    root = os.path.join(OUT_DIR, "job")
+    shutil.rmtree(root, ignore_errors=True)  # no checkpoint of an earlier run resumes
+    os.makedirs(root)
+    zip_path = os.path.join(root, "capture.zip")
+    t0 = time.time()
+    with zipfile.ZipFile(zip_path, "w") as zf:
+        for i, img in enumerate(images):
+            bgr = (np.clip(img[..., ::-1], 0, 1) * 255).round().astype(np.uint8)
+            zf.writestr(f"capture/frame_{i:04d}.png", cv2.imencode(".png", bgr)[1].tobytes())
+    uuid, out = "chip-smoke-default-job", os.path.join(root, "out")
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:  # the reference's defaults, but for maxSteps
+        json.dump({"uuid": uuid, "inputPath": zip_path, "outputPath": out,
+                   "training": {"maxSteps": job_steps}}, f)
+    log(f"[job] {len(images)} frames {images.shape[2]}x{images.shape[1]} as 8-bit PNGs in "
+        f"{os.path.relpath(zip_path, ROOT)} ({os.path.getsize(zip_path) / 2**20:.1f} MiB, "
+        f"{time.time() - t0:.1f} s); job: defaults, maxSteps {job_steps}")
+
+    lines = []
+    log_path = os.path.join(OUT_DIR, "job_log.txt")
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lg = logging.getLogger("tpu_splat_torch.pipeline")
+    keep = Keep(level=logging.INFO)
+    lg.addHandler(keep)
+    lg.setLevel(logging.INFO)
+    stdout = io.StringIO()
+    cr.reset_launch_counts()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli_main(["run", job_path])
+    finally:
+        lg.removeHandler(keep)
+        with open(log_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    job_s = time.time() - t0
+    launches = main_path_launches("default job (CLI run)")
+    if rc != 0:
+        raise AssertionError(f"the CLI run exited {rc}; its log: {log_path}")
+    res = json.loads(stdout.getvalue())
+    if res["status"] != "Complete":
+        raise AssertionError(f"job status {res['status']}")
+    metrics, timings = res["metrics"], res["timings"]
+    n_reg = int(metrics["num_registered"])
+    if n_reg < 14:
+        raise AssertionError(f"the job registered {n_reg} of {len(images)} frames")
+
+    colmap, sparse = os.path.join(out, "colmap"), os.path.join(out, "colmap", "sparse", "0")
+    wanted = [os.path.join(colmap, "database.db"), os.path.join(colmap, "transforms.json"),
+              os.path.join(out, "exports", "splat.ply"), os.path.join(out, "exports", "splat.spz"),
+              os.path.join(out, "jobs", f"{uuid}.json")]
+    wanted += [os.path.join(sparse, f"{f}.{e}") for f in ("cameras", "images", "points3D")
+               for e in ("txt", "bin")]
+    missing = [p for p in wanted if not os.path.isfile(p)]
+    missing += [p for p in res["artifacts"].values() if not os.path.isfile(p)]
+    if missing or set(res["artifacts"]) != {"colmap_db", "transforms_json", "ply", "spz"}:
+        raise AssertionError(f"artifacts missing: {missing}; delivered {res['artifacts']}")
+    with open(os.path.join(out, "jobs", f"{uuid}.json")) as f:
+        if json.load(f)["status"] != "Complete":
+            raise AssertionError("the job store does not say Complete")
+
+    db = read_database(os.path.join(colmap, "database.db"))
+    cam = db["cameras"][1]
+    k1 = float(cam["params"][3]) if cam["model"] == 2 else 0.0
+    if len(db["images"]) != len(images) or len(db["keypoints"]) != len(images):
+        raise AssertionError(f"the database holds {len(db['images'])} images")
+    models = {}
+    for kind in ("txt", "bin"):
+        d = os.path.join(root, f"model_{kind}")
+        os.makedirs(d, exist_ok=True)
+        for f in ("cameras", "images", "points3D"):
+            shutil.copy(os.path.join(sparse, f"{f}.{kind}"), d)
+        models[kind] = read_colmap_model(d)
+    n_pts = count_points3d(sparse)
+    for kind, (cams, imgs, pts, _) in models.items():
+        poses = np.array([np.concatenate([r["qvec"], r["tvec"]]) for r in imgs.values()])
+        if len(imgs) != n_reg or len(pts) != n_pts or len(cams) != 1:
+            raise AssertionError(f"{kind} model: {len(imgs)} images, {len(pts)} points, "
+                                 f"against {n_reg} registered and {n_pts} points")
+        if not (np.isfinite(poses).all() and np.isfinite(pts).all()):
+            raise AssertionError(f"{kind} model holds a non-finite pose or point")
+    ply = load_ply(os.path.join(out, "exports", "splat.ply"))
+    spz = load_spz(os.path.join(out, "exports", "splat.spz"))
+    if ply.num_points != spz.num_points or ply.num_points != int(metrics["num_gaussians"]):
+        raise AssertionError(f".ply {ply.num_points} / .spz {spz.num_points} gaussians, "
+                             f"trained {metrics['num_gaussians']}")
+    for name in ("means", "scales", "quats", "opacities", "sh0", "shN"):
+        if not np.isfinite(getattr(ply, name)).all():
+            raise AssertionError(f"the delivered .ply has a non-finite {name}")
+
+    undistorted = next((s for s in lines if s.startswith("undistorting")), None)
+    sfm_timers = [s for s in lines if s.startswith("sfm timers")][-1]
+    rates = [s for s in lines if s.startswith("step ") and "it/s" in s]
+    train_s = timings["Train-Stage1"]
+    log("[job] components, s: " + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
+    log(f"[job] {sfm_timers}")
+    log(f"[job] registered {n_reg}/{len(images)}, {n_pts} points; self-calibrated k1 "
+        f"{k1:+.5f}; undistortion "
+        + (f"ran ({undistorted})" if undistorted else "did not run"))
+    log(f"[job] training: {job_steps} steps in {train_s:.2f} s = "
+        f"{1e3 * train_s / job_steps:.2f} ms/step with evaluation and export of the cloud "
+        f"({rates[-1] if rates else 'no rate logged'}); "
+        + (f"held-out psnr {metrics['psnr']:.3f} over {int(metrics['eval_views'])} views"
+           if metrics["eval_views"] else
+           f"train-view psnr {metrics['psnr']:.3f} (under 16 registered: no held-out split)")
+        + f"; {int(metrics['num_gaussians'])} gaussians")
+    log("[job] artifacts: " + ", ".join(
+        f"{k} {os.path.getsize(v) / 2**20:.2f} MiB" for k, v in res["artifacts"].items()))
+    log(f"[job] CLI run {job_s:.1f} s (launches {launches}); its log: "
+        f"{os.path.relpath(log_path, ROOT)}")
+    log(f"[job] {card_line()}")
 
 
 def main() -> int:
@@ -587,8 +811,23 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_steps(lambda i: step(i, state), 3 + n_steps, 5, step_ms)
     launches_full = main_path_launches("full-width train_step")
+    # two identical steps must agree bit for bit (then again with the
+    # parent's atomic pack-gather backward, for the record)
+    diffs = repeat_step(step, state, 3 + n_steps)
+    diffs_parent = repeat_step(step, state, 3 + n_steps, atomic_pack_gather_bwd)
+    log(f"[determinism] two identical train_steps from one state: "
+        f"{'bit-identical' if not diffs else f'{len(diffs)} tensors differ: {diffs}'} "
+        f"over {len(state[0]) + 2 * len(state[1].mu) + len(state[2])} tensors; with the "
+        f"parent's index_add_ backward: "
+        + ("bit-identical" if not diffs_parent else
+           f"{len(diffs_parent)} differ, the largest by "
+           f"{max(d for _, d in diffs_parent):.3e} ({[n for n, _ in diffs_parent]})"))
+    if diffs:
+        raise AssertionError(f"two identical train_steps differ: {diffs}")
     layers = layer_times(state[0], vms_d[0], [float(v) for v in intrins[0]], images_d[0],
                          width, height, cfg.max_per_tile)
+    layers.update(pack_gather_bwd_times(state[0], vms_d[0], [float(v) for v in intrins[0]],
+                                        width, height, cfg.max_per_tile))
     log("[layers] alone, ms: " + ", ".join(f"{n} {t:.3f}" for n, t in layers.items())
         + f"; kernels fwd {measured[256]['fwd_ms']:.3f} bwd {measured[256]['bwd_ms']:.3f}")
     del state, params, adam, dstate, images_d
@@ -624,7 +863,11 @@ def main() -> int:
         f"over {int(metrics5['eval_views'])} views; .ply/.spz reloaded with {n_ply} gaussians")
 
     # 6. SfM at a real size
-    sfm_phase(dev, np.random.default_rng(6))
+    sfm_images = sfm_phase(dev, np.random.default_rng(6))
+
+    # 7. a default job on phase 6's frames, through the CLI
+    job_phase(sfm_images, JOB_STEPS)
+    del sfm_images
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

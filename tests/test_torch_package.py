@@ -19,7 +19,11 @@ from tpu_splat_torch.gs import rasterize as tras
 from tpu_splat_torch.gs import render as trend
 from tpu_splat_torch.gs import trainer as ttrainer
 from tpu_splat_torch.sfm.features import FeatureConfig, extract_features_batch
+from tpu_splat_torch.core.config import JobConfig
+from tpu_splat_torch.core.errors import PipelineError
+from tpu_splat_torch.pipeline.runner import run_job
 from tpu_splat_torch.sfm.mapper import run_sfm
+from tpu_splat_torch.sfm.undistort import undistort_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "tpu_splat")
@@ -35,10 +39,14 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference_package():
     bad = []
     files = _port_files()
-    # the SfM slice's six modules are scanned too
-    sfm = {"geometry", "features", "matching", "ba", "intrinsics", "mapper"}
-    assert sfm <= {os.path.basename(f)[:-3] for f in files if f"{os.sep}sfm{os.sep}" in f}
-    assert len(files) > 25
+    # the SfM slice's modules and the default job's are scanned too
+    scanned = {os.path.relpath(f, REPO) for f in files}
+    new = {"sfm/" + m for m in ("geometry", "features", "matching", "ba", "intrinsics",
+                                "mapper", "undistort", "colmap_io", "colmap_db")}
+    new |= {"core/config", "core/errors", "ingest/video", "ingest/blur", "export/transforms",
+            "pipeline/component", "pipeline/runner", "pipeline/sink", "cli/main"}
+    assert {os.path.join("tpu_splat_torch", *m.split("/")) + ".py" for m in new} <= scanned
+    assert len(files) > 40
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -54,7 +62,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for():
+def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the check is for machines without one")
     n, w, h = 8, 32, 32
@@ -83,11 +91,21 @@ def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for():
         extract_features_batch(np.zeros((1, h, w), np.float32), fcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_sfm(imgs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sfm(imgs, export_database="database.db")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        undistort_batch(imgs, 10.0, 10.0, 16.0, 16.0, -0.1)
+    job = JobConfig(input_path=str(tmp_path / "capture.zip"), output_path=str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_job(job)
     # asked for, the CPU works
     out = tras.rasterize(z(n, 2), z(n, 3), z(n, 3), z(n), z(n), z(n), w, h, device="cpu")
     assert out.color.shape == (h, w, 3)
     feats = extract_features_batch(np.zeros((1, h, w), np.float32), fcfg, device="cpu")
     assert feats.descriptor.shape == (1, 16, 128) and not feats.valid.any()
+    assert undistort_batch(imgs, 10.0, 10.0, 16.0, 16.0, -0.1, device="cpu").shape == imgs.shape
+    with pytest.raises(PipelineError, match="710"):  # past the device check, to the input
+        run_job(job, device="cpu")
 
 
 def test_convert_round_trips_params_and_adam_state():

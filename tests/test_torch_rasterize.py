@@ -92,6 +92,39 @@ def test_tile_gaussians_matches_reference():
         assert np.array_equal(np.asarray(getattr(bj, name)), getattr(bt, name).numpy()), name
 
 
+def test_pack_gather_backward_is_the_transpose_of_the_gather():
+    """The pack gather's fixed-order backward (each key's slot gradient read
+    through Binning.pair_slot, summed per table row and folded onto the
+    gaussians) equals the plain transpose, an index_add_ of the bf16-rounded
+    slot gradients over the gathered ids, within f32 summation order, on the
+    load that overflows K, the corner-crosser tier and the 4x4 big tier."""
+    means2d, depths, radii, opac = binning_load()
+    rng = np.random.default_rng(6)
+    n = means2d.shape[0]
+    conics = rng.uniform(0.01, 0.2, (n, 3)).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (means2d, conics, colors, opac, depths)]
+    packed, _, b = tras.pack_tiles(*leaves, torch.from_numpy(radii), 256, 128, TS, 256)
+    cot = torch.from_numpy(rng.standard_normal(tuple(packed.shape)).astype(np.float32))
+    (packed * cot).sum().backward()
+    got = torch.cat([leaf.grad.reshape(n, -1) for leaf in leaves], 1)
+
+    k4, k8, km = (b.big4_order.shape[0], b.big8_order.shape[0], b.mid_order.shape[0])
+    sentinel = n + k4 + k8 + km
+    gidx_ext = torch.where(b.gvalid, b.gidx, torch.full_like(b.gidx, sentinel))
+    rows = cot.to(torch.bfloat16).to(torch.float32).reshape(cr.C_PACK, -1).T
+    d_ext = torch.zeros((sentinel + 1, cr.C_PACK)).index_add_(0, gidx_ext.reshape(-1), rows)
+    want = d_ext[:n].clone()
+    want.index_add_(0, b.big4_order, d_ext[n:n + k4])
+    want.index_add_(0, b.big8_order, d_ext[n + k4:n + k4 + k8])
+    want.index_add_(0, b.mid_order, d_ext[n + k4 + k8:sentinel])
+    # packed rows 0:2 read means2d (hi + lo), 2:10 conic, rgb, opacity, depth
+    want = want[:, :10]
+    assert max_rel(want, got) <= 1e-6
+    assert int((b.pair_slot < b.gidx.numel()).sum()) == int(b.gvalid.sum())
+
+
 def test_plain_forward_matches_reference(packed_fixture):
     """Bar of check_kernel_parity: max abs 2e-5 (f32 cumprod vs sequential order)."""
     packed, counts, out_ref = packed_fixture[:3]

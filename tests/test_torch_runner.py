@@ -1,0 +1,315 @@
+"""The port's job config, runner and CLI (tpu_splat_torch/core/config.py,
+pipeline/{component,runner,sink}.py, cli/main.py) against the JAX package's.
+
+A default job runs in both packages on one zip of 12 seeded 64x48 frames,
+with run_sfm and train_splat replaced in each by the same fast fake (a fixed
+scene with a nonzero k1, and a fixed cloud), so every other stage runs for
+real: ingest, blur filtering, undistortion, the COLMAP model, the delivery
+rotation and the artifact sink. The component graph, artifacts, metrics, job
+store, undistorted frames and delivered bytes are compared."""
+
+import dataclasses
+import json
+import logging
+import os
+import zipfile
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_config import REFERENCE_JOB
+from tpu_splat.core import config as jconfig
+from tpu_splat.core import types as jtypes
+from tpu_splat.core.errors import PipelineError as JPipelineError
+from tpu_splat.pipeline import component as jcomp
+from tpu_splat.pipeline import runner as jrunner
+from tpu_splat_torch.cli import main as tcli
+from tpu_splat_torch.core import config as tconfig
+from tpu_splat_torch.core import types as ttypes
+from tpu_splat_torch.core.errors import PipelineError as TPipelineError
+from tpu_splat_torch.pipeline import component as tcomp
+from tpu_splat_torch.pipeline import runner as trunner
+
+torch.set_num_threads(1)
+
+W, H, N = 64, 48, 12
+K1 = -0.08
+SPARSE = ["cameras.bin", "cameras.txt", "images.bin", "images.txt", "points3D.bin",
+          "points3D.txt"]
+
+
+def test_job_config_parses_and_round_trips_like_reference():
+    for payload in (REFERENCE_JOB, {}, {"training": {"maxSteps": "600", "rotateSplat": "0"}}):
+        got, want = tconfig.job_config_from_json(payload), jconfig.job_config_from_json(payload)
+        if not payload.get("uuid"):
+            got.uuid = want.uuid  # a fresh uuid4 each
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert tconfig.job_config_to_json(got) == jconfig.job_config_to_json(want)
+        again = tconfig.job_config_from_json(json.dumps(tconfig.job_config_to_json(got)))
+        assert dataclasses.asdict(again) == dataclasses.asdict(got)
+    assert dataclasses.asdict(tconfig.JobConfig(uuid="u")) == \
+        dataclasses.asdict(jconfig.JobConfig(uuid="u"))
+    for bad in ({"sfm": {"matchingMethod": "nope"}}, {"training": {"model": "nope"}}):
+        with pytest.raises(TPipelineError) as e:
+            tconfig.job_config_from_json(bad)
+        with pytest.raises(JPipelineError) as e_ref:
+            jconfig.job_config_from_json(bad)
+        assert str(e.value) == str(e_ref.value)
+
+
+def graph(pkg, cfg):
+    comp, runner = (tcomp, trunner) if pkg == "port" else (jcomp, jrunner)
+    pipe = comp.Pipeline(name="g")
+    if pkg == "port":
+        runner._register_components(pipe, cfg)
+    else:
+        runner._register_components(pipe, cfg, "")
+    return [(c.name, c.ctype.value, c.error_code, c.enabled) for c in pipe.components]
+
+
+def test_component_graph_matches_reference():
+    for payload in ({}, REFERENCE_JOB, {"segmentation": {"removeBackground": "true"},
+                                        "measurement": {"referenceType": "tripod"},
+                                        "training": {"model": "nerfacto"}}):
+        assert graph("port", tconfig.job_config_from_json(payload)) == \
+            graph("ref", jconfig.job_config_from_json(payload))
+
+
+def seeded_zip(path, n=N, w=W, h=H):
+    import cv2
+
+    rng = np.random.default_rng(12)
+    with zipfile.ZipFile(path, "w") as zf:
+        for i in range(n):
+            img = cv2.resize(rng.uniform(0, 255, (h // 4, w // 4, 3)).astype(np.float32),
+                             (w, h), interpolation=cv2.INTER_CUBIC)
+            ok, png = cv2.imencode(".png", np.clip(img, 0, 255).astype(np.uint8))
+            zf.writestr(f"capture/frame_{i:03d}.png", png.tobytes())
+    return path
+
+
+def fake_arrays(n_reg):
+    rng = np.random.default_rng(13)
+    c2w = np.tile(np.eye(4, dtype=np.float32), (n_reg, 1, 1))
+    c2w[:, :3, 3] = rng.normal(0, 1, (n_reg, 3))
+    cams = dict(camtoworlds=c2w, fx=np.full(n_reg, 55.0, np.float32),
+                fy=np.full(n_reg, 55.0, np.float32), cx=np.full(n_reg, 32.0, np.float32),
+                cy=np.full(n_reg, 24.0, np.float32),
+                distortion=np.tile(np.array([[K1, 0, 0, 0]], np.float32), (n_reg, 1)))
+    p = 60
+    pts = dict(points=rng.normal(0, 2, (p, 3)).astype(np.float32),
+               point_colors=rng.uniform(0, 1, (p, 3)).astype(np.float32),
+               point_errors=rng.uniform(0, 1, p).astype(np.float32),
+               track_counts=np.full(p, 2, np.int32))
+    g = 40
+    cloud = dict(means=rng.normal(0, 1, (g, 3)), scales=rng.normal(-3, 0.3, (g, 3)),
+                 quats=rng.normal(0, 1, (g, 4)), opacities=rng.normal(0, 1, g),
+                 sh0=rng.normal(0, 0.3, (g, 3)), shN=rng.normal(0, 0.05, (g, 15, 3)))
+    return cams, pts, {k: v.astype(np.float32) for k, v in cloud.items()}
+
+
+@pytest.fixture
+def fakes(monkeypatch):
+    """Patch both packages' run_sfm and train_splat with the same fakes;
+    returns what each fake was called with, by package."""
+    from tpu_splat.gs import pipeline as jgs
+    from tpu_splat.sfm import colmap_db as jdb
+    from tpu_splat.sfm import mapper as jmapper
+    from tpu_splat_torch.gs import pipeline as tgs
+    from tpu_splat_torch.sfm import colmap_db as tdb
+    from tpu_splat_torch.sfm import mapper as tmapper
+
+    calls = {"ref": {}, "port": {}}
+    state = {"n_reg": N - 1}
+
+    def make(pkg, types, db, wrap):
+        def run_sfm(images, cfg, fx=None, fy=None, log_fn=None, export_database=None,
+                    **kw):
+            calls[pkg]["sfm"] = dict(images=images, fx=fx, kw=kw)
+            n_reg = state["n_reg"]
+            cams, pts, _ = fake_arrays(n_reg)
+            db.write_database(export_database, W, H, 55.0, 55.0, 32.0, 24.0,
+                              [f"f{i}" for i in range(len(images))],
+                              keypoints=[np.zeros((4, 2), np.float32)] * len(images), k1=K1)
+            log_fn("sfm timers [done]: fake")
+            reg = np.arange(len(images)) != 3
+            reg[n_reg + 1:] = False
+            return types.SfMScene(
+                cameras=types.Cameras(**{k: wrap(v) for k, v in cams.items()}, width=W,
+                                      height=H),
+                **{k: wrap(v) for k, v in pts.items()}, registered=wrap(reg))
+
+        def train_splat(scene, images, **kw):
+            calls[pkg]["train"] = dict(scene=scene, images=images, kw=kw)
+            cloud = types.GaussianCloud(**{k: wrap(v) for k, v in fake_arrays(1)[2].items()})
+            return cloud, {"num_gaussians": 40.0, "psnr": 21.5, "train_steps": 7.0}
+        return run_sfm, train_splat
+
+    for pkg, types, db, mapper, gs, wrap in (
+            ("ref", jtypes, jdb, jmapper, jgs, jnp.asarray),
+            ("port", ttypes, tdb, tmapper, tgs, lambda a: a)):
+        run_sfm, train_splat = make(pkg, types, db, wrap)
+        monkeypatch.setattr(mapper, "run_sfm", run_sfm)
+        monkeypatch.setattr(gs, "train_splat", train_splat)
+    return calls, state
+
+
+def run_both(tmp_path, payload, zip_path):
+    out = {}
+    for pkg, config, runner in (("ref", jconfig, jrunner), ("port", tconfig, trunner)):
+        cfg = config.job_config_from_json(
+            dict(payload, uuid="job-1", inputPath=zip_path, outputPath=str(tmp_path / pkg)))
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        out[pkg] = runner.run_job(cfg, **kw)
+    return out
+
+
+def test_default_job_matches_reference(tmp_path, fakes):
+    calls, _ = fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    res = run_both(tmp_path, {"training": {"maxSteps": 7}}, zip_path)
+    got, want = res["port"], res["ref"]
+    assert got.status == want.status == "Complete"
+    assert list(got.timings) == list(want.timings) == [
+        "Resolve-Input", "Media-To-Images", "Filter-Blurry-Images", "SfM", "Quality-Gate",
+        "Train-Stage1", "Export-Splat", "Rotate-Mirror-SPZ-Export", "Artifact-Export"]
+    assert got.metrics == want.metrics and got.metrics["num_registered"] == N - 1
+
+    def rel(res, pkg):
+        return {k: os.path.relpath(v, tmp_path / pkg) for k, v in res.artifacts.items()}
+    assert rel(got, "port") == rel(want, "ref") == {
+        k: f"workflow-output/job-1/{f}" for k, f in (
+            ("colmap_db", "database.db"), ("transforms_json", "transforms.json"),
+            ("ply", "splat.ply"), ("spz", "splat.spz"))}
+    stores = [json.load(open(tmp_path / pkg / "jobs" / "job-1.json")) for pkg in ("port", "ref")]
+    assert stores[0]["status"] == stores[1]["status"] == "Complete"
+    assert stores[0].keys() == stores[1].keys()
+    assert stores[0]["timings"].keys() == stores[1]["timings"].keys()
+
+    # the same frames reach SfM; the undistorted registered frames reach training
+    np.testing.assert_array_equal(calls["port"]["sfm"]["images"], calls["ref"]["sfm"]["images"])
+    assert calls["port"]["sfm"]["kw"] == {"device": torch.device("cpu")}
+    t_got, t_want = calls["port"]["train"], calls["ref"]["train"]
+    assert t_got["images"].shape == (N - 1, H, W, 3)
+    assert not np.allclose(t_got["images"], calls["port"]["sfm"]["images"][np.arange(N) != 3])
+    np.testing.assert_allclose(t_got["images"], t_want["images"], atol=1e-5, rtol=0)
+    assert not np.asarray(t_got["scene"].cameras.distortion).any()
+    assert not np.asarray(t_want["scene"].cameras.distortion).any()
+    for key in ("model", "max_steps", "downscale_factor", "masks", "resume", "checkpoint_dir"):
+        v_got, v_want = t_got["kw"][key], t_want["kw"][key]
+        if key == "checkpoint_dir":
+            v_got, v_want = (os.path.relpath(v_got, tmp_path / "port"),
+                             os.path.relpath(v_want, tmp_path / "ref"))
+        assert v_got == v_want, key
+    assert t_got["kw"]["checkpoint_dir"].endswith("checkpoints") and t_got["kw"]["resume"]
+    assert t_got["kw"]["device"] == torch.device("cpu")
+
+    for sub in [os.path.join("colmap", "sparse", "0", f) for f in SPARSE] + [
+            os.path.join("colmap", "transforms.json"), os.path.join("exports", "splat.spz"),
+            os.path.join("exports", "splat.ply")]:
+        assert (tmp_path / "port" / sub).read_bytes() == (tmp_path / "ref" / sub).read_bytes(), \
+            sub
+
+
+def test_error_codes_match_reference(tmp_path, fakes):
+    _, state = fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    single = str(tmp_path / "one.png")
+    with zipfile.ZipFile(zip_path) as zf:
+        open(single, "wb").write(zf.read("capture/frame_000.png"))
+    state["n_reg"] = 8  # below the splatfacto gate's 10 frames
+    for case, path, code in (("missing", str(tmp_path / "nope.mp4"), 710),
+                             ("single", single, 705), ("gate", zip_path, 755)):
+        errors = {}
+        for pkg, config, runner, err in (("ref", jconfig, jrunner, JPipelineError),
+                                         ("port", tconfig, trunner, TPipelineError)):
+            cfg = config.job_config_from_json(
+                {"uuid": case, "inputPath": path, "outputPath": str(tmp_path / case / pkg)})
+            kw = {"device": "cpu"} if pkg == "port" else {}
+            with pytest.raises(err) as e:
+                runner.run_job(cfg, **kw)
+            store = json.load(open(tmp_path / case / pkg / "jobs" / f"{case}.json"))
+            errors[pkg] = (e.value.code, str(e.value), store["status"], store["code"])
+        assert errors["port"] == errors["ref"] and errors["port"][0] == code, case
+
+
+def test_portrait_capture_gets_the_y_rotation_of_the_reference(tmp_path):
+    _, _, arrays = fake_arrays(1)
+    for shape, y in (((3, 96, 64, 3), 90), ((3, 64, 96, 3), 180)):
+        for pkg, comp, runner, config, types, wrap in (
+                ("ref", jcomp, jrunner, jconfig, jtypes, jnp.asarray),
+                ("port", tcomp, trunner, tconfig, ttypes, lambda a: a)):
+            ctx = comp.PipelineContext(cfg=config.JobConfig(uuid="p"),
+                                       out_dir=str(tmp_path / f"{pkg}{y}"))
+            ctx["splat"] = types.GaussianCloud(**{k: wrap(v) for k, v in arrays.items()})
+            ctx["images"] = np.zeros(shape, np.float32)
+            runner._export_spz(ctx)
+        for f in ("splat.spz", "splat.ply"):
+            assert (tmp_path / f"port{y}" / "exports" / f).read_bytes() == \
+                (tmp_path / f"ref{y}" / "exports" / f).read_bytes()
+    assert (tmp_path / "port90/exports/splat.spz").read_bytes() != \
+        (tmp_path / "port180/exports/splat.spz").read_bytes()
+
+
+@pytest.mark.parametrize("payload", [
+    {"segmentation": {"removeBackground": "true"}},
+    {"segmentation": {"removeHumanSubject": "true"}},
+    {"imageProcessing": {"blurMaskMethod": "u2net"}},
+    {"sphericalCamera": {"enable": "true"}},
+    {"sfm": {"posePriors": {"usePosePriorColmapModelFiles": "true"}}},
+    {"sfm": {"posePriors": {"usePosePriorTransformJson": {"enable": "true"}}}},
+    {"sfm": {"softwareName": "glomap"}},
+    {"training": {"model": "nerfacto"}},
+    {"measurement": {"referenceType": "tripod"}},
+    {"semantic": {"enableObjectLayer": "true"}},
+], ids=lambda p: next(iter(p)))
+def test_unported_components_fail_before_any_stage(tmp_path, fakes, payload):
+    calls, _ = fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"), n=3)
+    cfg = tconfig.job_config_from_json(dict(payload, inputPath=zip_path,
+                                            outputPath=str(tmp_path / "out")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1[0-4]"):
+        trunner.run_job(cfg, device="cpu")
+    assert not os.path.exists(tmp_path / "out") and not calls["port"]
+
+
+def test_multi_gpu_flag_trains_on_one_card_and_is_refused_with_two(tmp_path, fakes,
+                                                                   monkeypatch):
+    calls, _ = fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    payload = {"inputPath": zip_path, "outputPath": str(tmp_path / "out"),
+               "training": {"enableMultiGpu": "true", "maxSteps": 3}}
+    lines = []
+    res = trunner.run_job(tconfig.job_config_from_json(payload), log_fn=lines.append,
+                          device="cpu")
+    assert res.status == "Complete" and "train" in calls["port"]
+    assert any("only one device present" in s for s in lines)
+    assert any(s.startswith("sfm timers") for s in lines)  # the bridged pipeline logger
+    assert logging.getLogger(trunner.LOGGER).handlers == []
+    monkeypatch.setattr(trunner, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    payload["outputPath"] = str(tmp_path / "out2")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        trunner.run_job(tconfig.job_config_from_json(payload))
+    assert not os.path.exists(tmp_path / "out2")
+
+
+def test_cli_run_and_status(tmp_path, fakes, capsys):
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    job = tmp_path / "job.json"
+    job.write_text(json.dumps({"uuid": "cli-1", "inputPath": zip_path,
+                               "outputPath": str(tmp_path / "out"),
+                               "training": {"maxSteps": 5}}))
+    assert tcli.main(["run", str(job), "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["uuid"] == "cli-1" and out["status"] == "Complete"
+    assert set(out["artifacts"]) == {"colmap_db", "transforms_json", "ply", "spz"}
+    assert out["metrics"]["num_registered"] == N - 1 and "SfM" in out["timings"]
+    assert tcli.main(["status", str(tmp_path / "out"), "cli-1"]) == 0
+    status = json.loads(capsys.readouterr().out)
+    assert status["status"] == "Complete" and status["artifacts"] == out["artifacts"]
+    assert tcli.main(["run", "--input", str(tmp_path / "none.zip"), "--output",
+                      str(tmp_path / "out3"), "--device", "cpu"]) == 1
+    assert "[710]" in capsys.readouterr().err

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of tpu_splat's 3DGS training path.
+"""PyTorch/CUDA port of tpu_splat: 3DGS training, SfM and the default job.
 
 The JAX package `tpu_splat` stays the reference; this package mirrors its module
 layout (`tpu_splat_torch/gs/rasterize.py` <-> `tpu_splat/gs/rasterize.py`) and

@@ -1,6 +1,8 @@
 """Pipeline error-code taxonomy (the port's copy of tpu_splat/core/errors.py).
 
-Mirrors the reference's numbered error codes so users can map failures 1:1.
+Mirrors the reference's numbered error codes (main.py:45-70) so users of the
+reference can map failures 1:1. Codes are raised as PipelineError and surfaced by
+the orchestrator in the completion report.
 """
 
 from __future__ import annotations
@@ -11,8 +13,7 @@ ERROR_MESSAGES = {
         "Input file type not supported. Only .mp4, .mov, and .zip with .png or "
         ".jpeg/.jpg files are supported for input"
     ),
-    710: ("Required configuration fields not set. Check that the job payload has the "
-          "required fields"),
+    710: "Required configuration fields not set. Check that the job payload has the required fields",
     715: (
         "Configuration not supported. Only pose prior transform json or pose prior "
         "colmap model files can be enabled, not both."
@@ -51,3 +52,33 @@ class PipelineError(RuntimeError):
         if detail:
             msg += f": {detail}"
         super().__init__(msg)
+
+
+def is_sfm_failure(message: str) -> bool:
+    """Classify an error message as an SfM convergence failure.
+
+    Port of the failure-fingerprint logic in the reference completion Lambda
+    (workflow_complete.py:125-139): these patterns indicate the input capture had
+    insufficient overlap/features rather than a software fault.
+    """
+    patterns = [
+        "sfm failed to converge",
+        "keeplargestconnectedcomponents",
+        "torch.multinomial",
+        "no images are registered",
+        "not enough sparse points",
+        "not enough registered frames",
+        "solverfailure",
+    ]
+    low = message.lower()
+    return any(p in low for p in patterns)
+
+
+SFM_FAILURE_REMEDIATION = (
+    "Structure-from-motion could not reconstruct the scene from the provided media. "
+    "This usually means the capture has insufficient overlap between frames, too much "
+    "motion blur, or too few distinctive features. Try: capturing with more overlap "
+    "(60-80% between consecutive frames), moving the camera more slowly, adding more "
+    "images of textured surfaces, or using the 'exhaustive' matching method for small "
+    "image sets."
+)

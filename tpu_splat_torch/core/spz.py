@@ -179,3 +179,30 @@ def load_spz(path_or_file: Union[str, io.IOBase]) -> GaussianCloud:
     else:
         data = path_or_file.read()
     return unpack_gaussians(gzip.decompress(data))
+
+
+def rotate_180_about_x(cloud: GaussianCloud) -> GaussianCloud:
+    """RUB <-> RDF coordinate conversion (mirrors splat-types.h rotate180DegAboutX).
+
+    Negates y/z positions, applies the equivalent quaternion transform, and flips the
+    SH coefficients that reference the y and z axes.
+    """
+    g = cloud.to_numpy()
+    means = g.means * np.array([1.0, -1.0, -1.0], dtype=np.float32)
+    w, x, y, z = g.quats[:, 0], g.quats[:, 1], g.quats[:, 2], g.quats[:, 3]
+    s = np.where(x < 0.0, -1.0, 1.0).astype(np.float32)
+    quats = np.stack([s * x, -s * w, s * z, -s * y], axis=1)  # wxyz out
+    shN = g.shN.copy()
+    coeffs_to_invert = [0, 1, 3, 6, 8, 10, 11, 13]
+    for j in coeffs_to_invert:
+        if j < shN.shape[1]:
+            shN[:, j, :] = -shN[:, j, :]
+    return GaussianCloud(
+        means=means,
+        scales=g.scales,
+        quats=quats,
+        opacities=g.opacities,
+        sh0=g.sh0,
+        shN=shN,
+        antialiased=cloud.antialiased,
+    )

@@ -61,12 +61,20 @@ class Cameras:
 
     @property
     def worldtocams(self) -> np.ndarray:
-        """(N, 4, 4) world-to-camera matrices (inverse of SE(3) camtoworlds)."""
+        """(N, 4, 4) world-to-camera matrices (inverse of SE(3) camtoworlds).
+
+        -R^T t is summed in the reference's order, a chain of fused
+        multiply-adds (each product added exactly, one rounding per step), so
+        the poses the port exports are byte-equal to the reference's."""
         c2w = to_numpy(self.camtoworlds)
         R = c2w[..., :3, :3]
         t = c2w[..., :3, 3]
         Rt = np.swapaxes(R, -1, -2)
-        t_inv = -np.einsum("...ij,...j->...i", Rt, t)
+        acc = np.zeros(t.shape, c2w.dtype)
+        for j in range(3):
+            acc = (acc.astype(np.float64)
+                   + Rt[..., :, j].astype(np.float64) * t[..., None, j]).astype(c2w.dtype)
+        t_inv = -acc
         w2c = np.zeros(c2w.shape, c2w.dtype)
         w2c[..., :3, :3] = Rt
         w2c[..., :3, 3] = t_inv

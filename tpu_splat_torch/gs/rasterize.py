@@ -11,9 +11,9 @@ bin, pack and composite the same pairs:
 3. each tile keeps its first K pairs, which `_PackGather` gathers into the
    channel-major (16, T, K) block the compositing kernels read.
 
-The reference's inverse-slot maps and second sort exist only because TPU
-scatter-add is slow; here the gather's backward is its transpose, an
-`index_add_` over the same indices.
+The gather's backward is its transpose, summed in a fixed order through an
+inverse map from each key to its slot (`Binning.pair_slot`), so that it
+repeats bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ class Binning(NamedTuple):
     big8_order: torch.Tensor  # (K_big8,) original ids of tier 2b
     mid_overflow: torch.Tensor  # () diagnostic
     big_overflow: torch.Tensor  # () diagnostic (tier-2a + 2b overflow)
+    pair_slot: torch.Tensor   # (pairs,) each key's flat slot t * K + j, T * K if not kept
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -246,8 +247,16 @@ def tile_gaussians(
     sorted_gid_pad = torch.cat(
         [sorted_gid, torch.zeros(max_per_tile, dtype=torch.int64, device=dev)])
     gidx = sorted_gid_pad[pos]
+    # the inverse of the gather, for its backward: where each key (in key
+    # order) landed in the (T, K) block, or T * K when it was not kept
+    sorted_pos = torch.arange(sorted_tile.shape[0], device=dev)
+    slot = sorted_pos - tile_start[sorted_tile.clamp_max(t_total - 1)]
+    kept = (sorted_tile < t_total) & (slot < max_per_tile)
+    pair_slot = torch.empty_like(sorted_pid)
+    pair_slot[sorted_pid] = torch.where(kept, sorted_tile * max_per_tile + slot,
+                                        t_total * max_per_tile)
     return Binning(gidx, gvalid, mid_order, big4_order, big8_order,
-                   mid_overflow, big_overflow)
+                   mid_overflow, big_overflow, pair_slot)
 
 
 class _PackGather(torch.autograd.Function):
@@ -256,12 +265,15 @@ class _PackGather(torch.autograd.Function):
     The source table is [feat; feat[big4_order]; feat[big8_order];
     feat[mid_order]; zero sentinel row], re-encoded in bf16 (means2d as a
     hi+lo pair) exactly as the reference packs it. The backward is the
-    transpose of the gather: an index_add_ of the bf16-rounded d_packed into
-    the extended table (f32 accumulation), whose appended rows then fold back
-    onto their originals. The rounding itself is treated as identity."""
+    transpose of the gather, in a fixed order so that it repeats bit for bit
+    on the card (an index_add_ over the slots sums duplicates with atomics
+    there): each key's bf16-rounded slot gradient is read through the
+    binning's inverse map (`pair_slot`), each table row sums its keys, whose
+    count per row is fixed by its tier, and the tier rows fold back onto
+    their gaussians (f32 throughout). The rounding is treated as identity."""
 
     @staticmethod
-    def forward(ctx, feat, gidx_ext, mid_order, big4_order, big8_order):
+    def forward(ctx, feat, gidx_ext, mid_order, big4_order, big8_order, pair_slot):
         f16 = feat.to(torch.bfloat16)
         lo = (feat[:, 0:2] - f16[:, 0:2].to(torch.float32)).to(torch.bfloat16)
         # 0:2 mean hi | 2:4 mean lo | 4:7 conic | 7:10 rgb | 10 op | 11 depth | pad
@@ -270,25 +282,27 @@ class _PackGather(torch.autograd.Function):
                              torch.zeros_like(enc[:1])], 0)
         t, k = gidx_ext.shape
         g = enc_ext[gidx_ext.reshape(-1)].T.reshape(cr.C_PACK, t, k).to(torch.float32)
-        ctx.save_for_backward(gidx_ext, mid_order, big4_order, big8_order)
+        ctx.save_for_backward(gidx_ext, mid_order, big4_order, big8_order, pair_slot)
         ctx.n = feat.shape[0]
         return torch.cat([g[0:2] + g[2:4], g[4:12], torch.zeros_like(g[0:6])], 0)
 
     @staticmethod
     def backward(ctx, d_packed):
-        gidx_ext, mid_order, big4_order, big8_order = ctx.saved_tensors
-        n = ctx.n
-        c = d_packed.shape[0]
-        k4, k8, km = big4_order.shape[0], big8_order.shape[0], mid_order.shape[0]
-        rows = d_packed.to(torch.bfloat16).to(torch.float32).reshape(c, -1).T.contiguous()
-        d_ext = torch.zeros((n + k4 + k8 + km + 1, c), dtype=torch.float32,
-                            device=d_packed.device)
-        d_ext.index_add_(0, gidx_ext.reshape(-1), rows)
-        d_feat = d_ext[:n].clone()
-        d_feat.index_add_(0, big4_order, d_ext[n:n + k4])
-        d_feat.index_add_(0, big8_order, d_ext[n + k4:n + k4 + k8])
-        d_feat.index_add_(0, mid_order, d_ext[n + k4 + k8:n + k4 + k8 + km])
-        return d_feat, None, None, None, None
+        _, mid_order, big4_order, big8_order, pair_slot = ctx.saved_tensors
+        n, c = ctx.n, d_packed.shape[0]
+        km, k4, k8 = mid_order.shape[0], big4_order.shape[0], big8_order.shape[0]
+        rows = d_packed.to(torch.bfloat16).to(torch.float32).reshape(c, -1).T
+        d = torch.cat([rows, torch.zeros_like(rows[:1])])[pair_slot]  # (keys, C)
+        # the key order of tile_gaussians: tier 0 and tier 1a (one key each per
+        # gaussian), then 2 keys per tier-1b slot, 16 per 4x4 and 64 per 8x8
+        n1b, n2a = 2 * n + 2 * km, 2 * n + 2 * km + 16 * k4
+        d_feat = d[:n] + d[n:2 * n]
+        # the orders repeat an id only in unused slots, whose keys were all
+        # dropped: their sums are exact zeros, so each fold is order-free
+        d_feat.index_add_(0, big4_order, d[n1b:n2a].reshape(k4, 16, c).sum(1))
+        d_feat.index_add_(0, big8_order, d[n2a:].reshape(k8, 64, c).sum(1))
+        d_feat.index_add_(0, mid_order, d[2 * n:n1b].reshape(km, 2, c).sum(1))
+        return d_feat, None, None, None, None, None
 
 
 def pack_tiles(means2d, conics, colors, opacities, depths, radii, width: int,
@@ -305,7 +319,8 @@ def pack_tiles(means2d, conics, colors, opacities, depths, radii, width: int,
     )
     sentinel_row = n + b.big4_order.shape[0] + b.big8_order.shape[0] + b.mid_order.shape[0]
     gidx_ext = torch.where(b.gvalid, b.gidx, torch.full_like(b.gidx, sentinel_row))
-    packed = _PackGather.apply(feat, gidx_ext, b.mid_order, b.big4_order, b.big8_order)
+    packed = _PackGather.apply(feat, gidx_ext, b.mid_order, b.big4_order, b.big8_order,
+                               b.pair_slot)
     counts = b.gvalid.sum(dim=1, dtype=torch.int32)
     return packed, counts, b
 

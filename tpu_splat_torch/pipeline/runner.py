@@ -1,0 +1,565 @@
+"""Job runner (the port of tpu_splat/pipeline/runner.py): assembles and
+executes the reconstruction pipeline from a JobConfig, with the reference's
+component graph, names, error codes, artifact paths and metrics:
+
+  resolve-input -> video-to-images | extract-archive -> filter-blurry-images
+  -> [remove-background] -> [spherical-to-perspective] -> sfm (features/match/
+  map/BA) -> train-stage-1 (3DGS) -> export-ply -> rotate-pre-spz ->
+  mirror-pre-spz -> spz-export -> [estimate-scale -> floorplan -> object-layer]
+  -> artifact-export
+
+SfM, undistortion and training run on the job's device (CUDA unless the
+caller asks for the CPU). A component the port does not have yet makes
+run_job raise NotImplementedError before any stage runs, naming its ROADMAP
+item.
+
+Quality gates mirror main.py:2031-2087 (frames >= 10 & points >= 50 for
+splatfacto, >= 3/>= 3 otherwise); the delivery orientation dance mirrors
+main.py:1479-1595 (the .spz is rotated x:270,y:180 + mirrored across x, while
+the delivered .ply keeps the reconstruction orientation).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tpu_splat_torch.core import spz as spz_codec
+from tpu_splat_torch.core.config import JobConfig
+from tpu_splat_torch.core.device import resolve_device
+from tpu_splat_torch.core.errors import PipelineError
+from tpu_splat_torch.core.ply import save_ply
+from tpu_splat_torch.core.types import to_numpy
+from tpu_splat_torch.pipeline.component import ComponentType, Pipeline, PipelineContext
+from tpu_splat_torch.pipeline.sink import ArtifactSink
+
+LOGGER = "tpu_splat_torch.pipeline"
+
+
+@dataclass
+class JobResult:
+    uuid: str
+    status: str
+    artifacts: Dict[str, str] = field(default_factory=dict)
+    timings: Dict[str, float] = field(default_factory=dict)
+    metrics: Dict[str, float] = field(default_factory=dict)
+    error: Optional[str] = None
+
+
+class JobStore:
+    """Local job-state store (the DynamoDB table analog, workflow_trigger.py:179).
+
+    One JSON file per job under <root>/jobs/."""
+
+    def __init__(self, root: str):
+        self.root = os.path.join(root, "jobs")
+        os.makedirs(self.root, exist_ok=True)
+
+    def update(self, uuid: str, **fields):
+        path = os.path.join(self.root, f"{uuid}.json")
+        data = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                data = json.load(f)
+        data.update(fields)
+        with open(path, "w") as f:
+            json.dump(data, f, indent=2, default=str)
+
+    def get(self, uuid: str) -> dict:
+        path = os.path.join(self.root, f"{uuid}.json")
+        with open(path) as f:
+            return json.load(f)
+
+
+@contextlib.contextmanager
+def _bridge_pipeline_logs(log_fn):
+    """Forward the pipeline logger's INFO records to log_fn for the duration
+    of the block (no-op when log_fn is None). Restores the logger's
+    level/propagate on exit so a job without log_fn keeps whatever logging
+    config the host application set up."""
+    if log_fn is None:
+        yield
+        return
+
+    class _LogFnHandler(logging.Handler):
+        def emit(self, record):
+            try:
+                log_fn(record.getMessage())
+            except Exception:
+                pass
+
+    lg = logging.getLogger(LOGGER)
+    bridge = _LogFnHandler(level=logging.INFO)
+    prev_level, prev_propagate = lg.level, lg.propagate
+    lg.addHandler(bridge)
+    if lg.level > logging.INFO or lg.level == logging.NOTSET:
+        lg.setLevel(logging.INFO)
+    lg.propagate = False  # no double print when root has a handler
+    try:
+        yield
+    finally:
+        lg.removeHandler(bridge)
+        lg.setLevel(prev_level)
+        lg.propagate = prev_propagate
+
+
+def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
+    """Execute a reconstruction job end to end on `device` (CUDA unless the
+    CPU is asked for). Returns the JobResult; raises PipelineError with a
+    taxonomy code on failure (after recording it), and NotImplementedError,
+    before any stage, when the job enables a component not ported yet."""
+    cfg.validate()
+    dev = resolve_device(device)
+    out_dir = os.path.abspath(cfg.output_path)
+    pipe = Pipeline(name="3DGS-Pipeline", uuid=cfg.uuid, log_fn=log_fn)
+    _register_components(pipe, cfg)
+    missing = [(c.name, c.fn.item) for c in pipe.components
+               if c.enabled and isinstance(c.fn, _NotPorted)]
+    if cfg.training.enable and cfg.training.enable_multi_gpu and dev.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        missing.append(("Train-Stage1 (enableMultiGpu)",
+                        "ROADMAP.md queue 1 item 14 (multi-device)"))
+    if missing:
+        raise NotImplementedError("the job enables components not ported yet: " + "; ".join(
+            f"{name}: {item}" for name, item in missing))
+
+    os.makedirs(out_dir, exist_ok=True)
+    store = JobStore(out_dir)
+    store.update(cfg.uuid, status="In-Progress", start=time.time(), config=cfg.uuid)
+    t0 = time.time()
+    try:
+        # Component internals (mapper registrations, trainer milestones, ...)
+        # log through the pipeline logger; bridge it to log_fn for the job.
+        with _bridge_pipeline_logs(log_fn):
+            ctx = pipe.run(PipelineContext(cfg=cfg, out_dir=out_dir, device=dev))
+    except PipelineError as e:
+        store.update(cfg.uuid, status="Error", end=time.time(),
+                     elapsed=time.time() - t0, error=str(e), code=e.code)
+        raise
+    result = JobResult(
+        uuid=cfg.uuid,
+        status="Complete",
+        artifacts=ctx.get("artifacts", {}),
+        timings=pipe.timings(),
+        metrics=ctx.get("metrics", {}),
+    )
+    store.update(
+        cfg.uuid, status="Complete", end=time.time(), elapsed=time.time() - t0,
+        artifacts=result.artifacts, metrics=result.metrics, timings=result.timings,
+    )
+    return result
+
+
+# ---------------------------------------------------------------------------
+# component registration (the conditional graph of main.py:659-1840)
+# ---------------------------------------------------------------------------
+
+
+class _NotPorted:
+    """The function of a component the port does not have yet; run_job
+    refuses a job that enables one before any stage runs."""
+
+    def __init__(self, item: str):
+        self.item = item
+
+    def __call__(self, ctx: PipelineContext):
+        raise NotImplementedError(f"not ported yet: {self.item}")
+
+
+_MATTING = _NotPorted("ROADMAP.md queue 1 item 11 (matting)")
+_SPHERICAL = _NotPorted("ROADMAP.md queue 1 item 12 (spherical)")
+_POSE_PRIORS = _NotPorted("ROADMAP.md queue 1 item 10.4 (sfm/pose_priors.py)")
+_GLOBAL_SFM = _NotPorted("ROADMAP.md queue 1 item 10.5 (sfm/global_mapper.py)")
+_EXTRAS = _NotPorted("ROADMAP.md queue 1 item 13 (export extras)")
+
+
+def _register_components(pipe: Pipeline, cfg: JobConfig):
+    pipe.create_component("Resolve-Input", ComponentType.LOADER, _resolve_input, 705)
+    pipe.create_component("Media-To-Images", ComponentType.LOADER, _media_to_images, 730)
+    blur_fn = (_filter_blurry if cfg.image_processing.blur_mask_method in ("full", "center")
+               else _MATTING)  # the saliency-masked scoring needs the matting stack
+    pipe.create_component(
+        "Filter-Blurry-Images", ComponentType.FILTER, blur_fn, 795,
+        enabled=cfg.image_processing.filter_blurry_images,
+    )
+    pipe.create_component(
+        "Remove-Background", ComponentType.FILTER, _MATTING, 740,
+        enabled=cfg.segmentation.remove_background,
+    )
+    pipe.create_component(
+        "Remove-Human-Subject", ComponentType.FILTER, _MATTING, 745,
+        enabled=cfg.segmentation.remove_human_subject,
+    )
+    pipe.create_component(
+        "Spherical-To-Perspective", ComponentType.TRANSFORM, _SPHERICAL, 735,
+        enabled=cfg.spherical_camera.enable,
+    )
+    use_priors = (cfg.sfm.pose_priors.use_pose_prior_transform_json
+                  or cfg.sfm.pose_priors.use_pose_prior_colmap_model_files)
+    pipe.create_component(
+        "Process-Pose-Priors", ComponentType.TRANSFORM, _POSE_PRIORS, 725,
+        enabled=cfg.sfm.enable and use_priors,
+    )
+    # As in the reference, the pre-SfM undistorter runs exactly when pose
+    # priors are on (distortion then comes from a prior COLMAP model).
+    pipe.create_component(
+        "Image-Undistorter", ComponentType.TRANSFORM, _POSE_PRIORS, 755,
+        enabled=cfg.sfm.enable and use_priors,
+    )
+    sfm_fn = _GLOBAL_SFM if cfg.sfm.software_name in ("glomap", "global") else _sfm
+    pipe.create_component("SfM", ComponentType.TRANSFORM, sfm_fn, 755,
+                          enabled=cfg.sfm.enable)
+    pipe.create_component("Quality-Gate", ComponentType.FILTER, _quality_gate, 795,
+                          enabled=cfg.sfm.enable and cfg.training.enable)
+    pipe.create_component("Train-Stage1", ComponentType.RENDERER, _train, 770,
+                          enabled=cfg.training.enable)
+    pipe.create_component("Export-Splat", ComponentType.EXPORTER, _export_ply, 780,
+                          enabled=cfg.training.enable)
+    pipe.create_component(
+        "Rotate-Mirror-SPZ-Export", ComponentType.EXPORTER, _export_spz, 783,
+        enabled=cfg.training.enable,
+    )
+    pipe.create_component(
+        "Mesh-Export", ComponentType.EXPORTER, _EXTRAS, 785,
+        enabled=cfg.training.enable and cfg.training.model == "nerfacto",
+    )
+    pipe.create_component(
+        "Estimate-Scale", ComponentType.EXPORTER, _EXTRAS, 795,
+        enabled=cfg.measurement.reference_type != "none",
+    )
+    pipe.create_component(
+        "Extract-Floorplan", ComponentType.EXPORTER, _EXTRAS, 795,
+        enabled=cfg.measurement.reference_type != "none",
+    )
+    pipe.create_component(
+        "Extract-Object-Layer", ComponentType.EXPORTER, _EXTRAS, 795,
+        enabled=cfg.semantic.enable_object_layer,
+    )
+    pipe.create_component("Artifact-Export", ComponentType.EXPORTER, _artifact_export, 786)
+
+
+def _resolve_input(ctx: PipelineContext):
+    cfg: JobConfig = ctx["cfg"]
+    path = cfg.input_path
+    from tpu_splat_torch.ingest.video import IMAGE_EXTENSIONS, VIDEO_EXTENSIONS
+
+    # Multi-video property scans: comma-separated video list -> merged SfM.
+    if "," in (path or ""):
+        parts = [p.strip() for p in path.split(",") if p.strip()]
+        for p in parts:
+            if not os.path.exists(p):
+                raise PipelineError(710, f"input not found: {p!r}")
+            if os.path.splitext(p)[1].lower() not in VIDEO_EXTENSIONS:
+                raise PipelineError(705, f"multi-input only supports videos: {p!r}")
+        ctx["input_kind"] = "multi_video"
+        ctx["input_path"] = parts
+        return
+    if not path or not os.path.exists(path):
+        raise PipelineError(710, f"input not found: {path!r}")
+    ext = os.path.splitext(path)[1].lower()
+    if os.path.isdir(path):
+        vids = sorted(
+            os.path.join(path, f) for f in os.listdir(path)
+            if f.lower().endswith(VIDEO_EXTENSIONS)
+        )
+        if len(vids) > 1:
+            ctx["input_kind"] = "multi_video"
+            ctx["input_path"] = vids
+            return
+        if len(vids) == 1:
+            ctx["input_kind"] = "video"
+            ctx["input_path"] = vids[0]
+            return
+        ctx["input_kind"] = "dir"
+    elif ext in VIDEO_EXTENSIONS:
+        ctx["input_kind"] = "video"
+    elif ext == ".zip":
+        ctx["input_kind"] = "zip"
+    elif ext in IMAGE_EXTENSIONS:
+        raise PipelineError(705, "a single image cannot be reconstructed")
+    else:
+        raise PipelineError(705, f"unsupported input type {ext!r}")
+    ctx["input_path"] = path
+
+
+def _media_to_images(ctx: PipelineContext):
+    from tpu_splat_torch.ingest.video import (exif_focal_px, extract_frames, extract_zip,
+                                              load_images_from_dir)
+
+    cfg: JobConfig = ctx["cfg"]
+    kind = ctx["input_kind"]
+    max_images = cfg.video_processing.max_num_images
+    resize = 3840  # resize-to-4K rule (main.py:97-157)
+    if kind == "video":
+        images = extract_frames(ctx["input_path"], max_frames=max(max_images * 2, 60),
+                                resize_max_dim=resize)
+    elif kind == "multi_video":
+        # merged SfM over several captures of the same property: frames from all
+        # videos share one image set; exhaustive/retrieval matching links them
+        paths = ctx["input_path"]
+        per = max(max_images * 2 // len(paths), 30)
+        segs, stacks = [], []
+        for p in paths:
+            frames = extract_frames(p, max_frames=per, resize_max_dim=resize)
+            segs.append(len(frames))
+            stacks.append(frames)
+        h = min(s.shape[1] for s in stacks)
+        w = min(s.shape[2] for s in stacks)
+        images = np.concatenate([s[:, :h, :w] for s in stacks])
+        ctx["segments"] = segs
+    elif kind == "zip":
+        img_dir = os.path.join(ctx["out_dir"], "images_raw")
+        extract_zip(ctx["input_path"], img_dir)
+        images, names = load_images_from_dir(img_dir, resize_max_dim=resize)
+        ctx["raw_dir"] = img_dir
+        ctx["image_names"] = names
+    else:
+        images, names = load_images_from_dir(ctx["input_path"], resize_max_dim=resize)
+        ctx["raw_dir"] = ctx["input_path"]
+        ctx["image_names"] = names
+    if len(images) < 3:
+        raise PipelineError(705, f"need >= 3 frames, got {len(images)}")
+    ctx["images"] = images
+    # EXIF focal seed for SfM self-calibration (photo inputs only)
+    if ctx.get("raw_dir") and ctx.get("image_names"):
+        fx = exif_focal_px(
+            os.path.join(ctx["raw_dir"], ctx["image_names"][0]),
+            images.shape[2],
+        )
+        if fx:
+            ctx["exif_fx"] = fx
+            pipe_logger(ctx)(f"EXIF focal seed: fx={fx:.1f}px")
+
+
+def _filter_blurry(ctx: PipelineContext):
+    from tpu_splat_torch.ingest.blur import filter_blurry_images
+
+    cfg: JobConfig = ctx["cfg"]
+    images = ctx.require("images")
+    target = min(cfg.video_processing.max_num_images, len(images))
+    selected, idx = filter_blurry_images(
+        images, target_count=target,
+        mask_method=cfg.image_processing.blur_mask_method,
+    )
+    ctx["images"] = selected
+    ctx["frame_indices"] = idx
+    if ctx.get("image_names") is not None:
+        ctx["image_names"] = [ctx["image_names"][i] for i in idx]
+
+
+def _sfm(ctx: PipelineContext):
+    from tpu_splat_torch.sfm.features import FeatureConfig
+    from tpu_splat_torch.sfm.mapper import MapperConfig, run_sfm
+
+    cfg: JobConfig = ctx["cfg"]
+    images = ctx.require("images")
+    # Low-resolution captures (<400px) auto-enable the enhanced small-image
+    # recipe: 2x upsample before octave 0, 3 octaves, capped feature count
+    # (the reference's enableEnhancedFeatureExtraction, main.py:967-971).
+    small = max(images.shape[1], images.shape[2]) < 400
+    mcfg = MapperConfig(
+        feature=FeatureConfig(
+            max_features=(min(cfg.sfm.max_features_per_image, 1024) if small
+                          else cfg.sfm.max_features_per_image),
+            num_octaves=3 if small else 4,
+            upsample_first=(cfg.sfm.enable_enhanced_feature_extraction
+                            or small),
+        ),
+        matching_method=cfg.sfm.matching_method,
+        exhaustive_max_images=cfg.sfm.exhaustive_matching_max_images,
+        refine_per_camera=cfg.sfm.refine_intrinsics_per_camera,
+    )
+    try:
+        # EXIF focal (when present) seeds self-calibration; refinement
+        # stays ON either way (COLMAP mapper default behavior)
+        exif_fx = ctx.get("exif_fx")
+        if exif_fx:
+            mcfg = dataclasses.replace(mcfg, refine_intrinsics=True)
+        colmap_dir = os.path.join(ctx["out_dir"], "colmap")
+        os.makedirs(colmap_dir, exist_ok=True)
+        db_path = os.path.join(colmap_dir, "database.db")
+        scene = run_sfm(images, mcfg, fx=exif_fx, fy=exif_fx,
+                        log_fn=pipe_logger(ctx),
+                        export_database=db_path, device=ctx["device"])
+        if os.path.exists(db_path):
+            ctx.setdefault("artifacts", {})["colmap_db"] = db_path
+    except RuntimeError as e:
+        raise PipelineError(755, str(e)) from e
+    ctx["scene"] = scene
+    reg = np.asarray(scene.registered)
+    # job-report metrics (the reference surfaces the same counts in its
+    # completion email, workflow_complete.py:386-406)
+    ctx.setdefault("metrics", {}).update({
+        "num_images": float(len(reg)),
+        "num_registered": float(reg.sum()),
+    })
+    ctx["images"] = images[reg]
+    if ctx.get("masks") is not None:
+        ctx["masks"] = ctx["masks"][reg]
+    _undistort_selfcal(ctx)
+    _export_sfm_model(ctx, reg)
+
+
+def _export_sfm_model(ctx: PipelineContext, reg: np.ndarray):
+    """Deliver the SfM model like the reference's workflow output: COLMAP
+    sparse model (text + binary, sparse/0 layout) under <out>/colmap/ and a
+    Nerfstudio transforms.json (colmap_to_nerfstudio_cam.py analog,
+    main.py:1202-1232) registered as a job artifact."""
+    from tpu_splat_torch.sfm.colmap_io import (write_colmap_model,
+                                               write_colmap_model_binary,
+                                               write_transforms_json)
+
+    scene = ctx["scene"]
+    names = ctx.get("image_names")
+    if names is not None and len(names) == len(reg):
+        names = [nm for nm, r in zip(names, reg) if r]
+    else:
+        names = None
+    colmap_dir = os.path.join(ctx["out_dir"], "colmap")
+    sparse = os.path.join(colmap_dir, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    write_colmap_model(scene, sparse, image_names=names)
+    write_colmap_model_binary(scene, sparse, image_names=names)
+    tj = os.path.join(colmap_dir, "transforms.json")
+    write_transforms_json(scene, tj, image_names=names)
+    ctx.setdefault("artifacts", {})["transforms_json"] = tj
+
+
+def _undistort_selfcal(ctx: PipelineContext):
+    """Undistort frames when SfM self-calibrated a radial model.
+
+    SfM poses/points live in UNDISTORTED observation space
+    (mapper._norm_coords), so before pinhole training the frames must be
+    undistorted with the estimated model (the reference's image_undistorter,
+    main.py:1161-1180), on the job's device. No-op on pinhole scenes."""
+    from tpu_splat_torch.sfm.undistort import undistort_batch
+
+    scene = ctx.require("scene")
+    dist = to_numpy(scene.cameras.distortion)
+    if not dist.size or not np.any(np.abs(dist) > 1e-6):
+        return
+    k1, k2, p1, p2 = (float(v) for v in dist[0])
+    cams = scene.cameras
+    intrin = [float(to_numpy(v)[0]) for v in (cams.fx, cams.fy, cams.cx, cams.cy)]
+    pipe_logger(ctx)(f"undistorting {ctx['images'].shape[0]} frames with "
+                     f"self-calibrated k1={k1:+.4f}")
+    ctx["images"] = undistort_batch(ctx["images"], *intrin, k1=k1, k2=k2, p1=p1, p2=p2,
+                                    device=ctx["device"])
+    if ctx.get("masks") is not None:
+        # masks are (N, H, W); the remap is channel-last
+        ctx["masks"] = undistort_batch(ctx["masks"].astype(np.float32)[..., None], *intrin,
+                                       k1=k1, k2=k2, p1=p1, p2=p2,
+                                       device=ctx["device"])[..., 0]
+    ctx["scene"] = dataclasses.replace(
+        scene, cameras=dataclasses.replace(cams, distortion=np.zeros_like(dist)))
+
+
+def _quality_gate(ctx: PipelineContext):
+    """Pre-training sufficiency checks (main.py:2031-2087)."""
+    cfg: JobConfig = ctx["cfg"]
+    scene = ctx.require("scene")
+    n_frames = int(np.asarray(scene.registered).sum())
+    n_points = scene.num_points
+    min_frames, min_points = (10, 50) if cfg.training.model.startswith("splatfacto") else (3, 3)
+    if n_frames < min_frames:
+        raise PipelineError(
+            755, f"SfM failed to converge: not enough registered frames "
+                 f"({n_frames} < {min_frames})"
+        )
+    if n_points < min_points:
+        raise PipelineError(
+            755, f"SfM failed to converge: not enough sparse points "
+                 f"({n_points} < {min_points})"
+        )
+
+
+def _train(ctx: PipelineContext):
+    from tpu_splat_torch.gs.pipeline import train_splat
+
+    cfg: JobConfig = ctx["cfg"]
+    if cfg.training.enable_multi_gpu:
+        # run_job refused the job if it had more than one card to train on
+        pipe_logger(ctx)("enableMultiGpu set but only one device present; "
+                         "training single-chip")
+    cloud, metrics = train_splat(
+        ctx.require("scene"),
+        ctx.require("images"),
+        model=cfg.training.model,
+        max_steps=cfg.training.max_steps,
+        downscale_factor=cfg.training.downscale_factor,
+        masks=ctx.get("masks"),
+        checkpoint_dir=os.path.join(ctx["out_dir"], "checkpoints"),
+        resume=True,
+        log_fn=pipe_logger(ctx),
+        device=ctx["device"],
+    )
+    ctx["splat"] = cloud
+    ctx.setdefault("metrics", {}).update(metrics)
+
+
+def _export_ply(ctx: PipelineContext):
+    out = os.path.join(ctx["out_dir"], "exports")
+    os.makedirs(out, exist_ok=True)
+    ply_path = os.path.join(out, "splat.ply")
+    save_ply(ctx.require("splat"), ply_path)
+    ctx.setdefault("artifacts", {})["ply"] = ply_path
+
+
+def _export_spz(ctx: PipelineContext):
+    """Delivery orientation dance (main.py:1479-1595): the .spz artifact is
+    rotated x:270,y:180 and mirrored across x for web viewers; the delivered
+    .ply then gets the reference's post-SPZ chain (rotate x:180,y:180 +
+    mirror x applied to the pre-SPZ-oriented cloud, main.py:1554-1595), so
+    both artifacts match the reference deliverables byte-for-orientation.
+    Portrait captures get an extra -90° y rotation (main.py:2201-2240's
+    Rotation-Pre-SPZ hook) so the delivered splat stands upright."""
+    from tpu_splat_torch.export.transforms import mirror_splat, rotate_splat
+
+    cfg: JobConfig = ctx["cfg"]
+    cloud = ctx.require("splat")
+    out = os.path.join(ctx["out_dir"], "exports")
+    os.makedirs(out, exist_ok=True)
+    if cfg.training.rotate_splat:
+        y_deg = 180
+        images = ctx.get("images")
+        if images is not None and images.shape[1] > images.shape[2]:
+            y_deg -= 90  # portrait input: height > width
+            pipe_logger(ctx)("portrait capture detected: y rotation 180 -> 90")
+        cloud = rotate_splat(cloud, f"x:270,y:{y_deg}")
+        cloud = mirror_splat(cloud, "x")
+    spz_path = os.path.join(out, "splat.spz")
+    spz_codec.save_spz(cloud, spz_path)
+    ctx.setdefault("artifacts", {})["spz"] = spz_path
+    if cfg.training.rotate_splat:
+        delivered = mirror_splat(rotate_splat(cloud, "x:180,y:180"), "x")
+        save_ply(delivered, os.path.join(out, "splat.ply"))
+
+
+def _artifact_export(ctx: PipelineContext):
+    """Copy artifacts to the configured sink (graceful skip of missing optional
+    artifacts, main.py:2250-2266 parity)."""
+    cfg: JobConfig = ctx["cfg"]
+    root = cfg.s3.bucket_name or ctx["out_dir"]
+    prefix = cfg.s3.output_prefix or "workflow-output"
+    sink = ArtifactSink(root)
+    delivered = {}
+    for name, path in ctx.get("artifacts", {}).items():
+        if not os.path.exists(path):
+            continue  # graceful skip
+        delivered[name] = sink.put(path, os.path.join(prefix, cfg.uuid,
+                                                      os.path.basename(path)))
+    ctx["artifacts"] = delivered
+
+
+def pipe_logger(ctx: PipelineContext):
+    lg = logging.getLogger(LOGGER)
+    return lambda s: lg.info(s)

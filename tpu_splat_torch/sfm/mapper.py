@@ -54,10 +54,6 @@ from tpu_splat_torch.sfm.matching import (
     select_pairs,
 )
 
-# where run_sfm's two COLMAP-database arguments are queued in ROADMAP.md
-_DB_ITEM = "ROADMAP.md queue 1 item 10 (colmap_db.py + colmap_io.py)"
-
-
 @dataclass
 class MapperConfig:
     feature: FeatureConfig = field(default_factory=FeatureConfig)
@@ -2048,6 +2044,28 @@ class IncrementalMapper:
                 self.has_point[live[far]] = False
                 self.log(f"filter: dropped {int(far.sum())} far outlier points")
 
+    def export_colmap_database(self, path: str,
+                               image_names: Optional[List[str]] = None):
+        """Write this mapper's features + verified matches as a COLMAP
+        database.db (colmap_db.write_database), so stock COLMAP tooling can
+        inspect or continue from them. Feature arrays are exported unfiltered
+        (padded rows included) so match indices stay valid; the verified pair
+        sets land in both `matches` and `two_view_geometries`."""
+        from tpu_splat_torch.sfm.colmap_db import write_database
+
+        names = image_names or [f"frame_{i:04d}.png" for i in range(self.n)]
+        write_database(
+            path, self.w, self.h, self.fx, self.fy, self.cx, self.cy,
+            names,
+            keypoints=[np.asarray(f.xy) for f in self.feats],
+            descriptors=[np.asarray(f.descriptor) for f in self.feats],
+            scales=[np.asarray(f.scale) for f in self.feats],
+            orientations=[np.asarray(f.orientation) for f in self.feats],
+            matches=self.pair_matches,
+            verified=self.pair_matches,
+            k1=self.k1,
+        )
+
     def _to_scene(self) -> SfMScene:
         live = np.nonzero(self.has_point)[0]
         pts = self.points[live]
@@ -2127,19 +2145,112 @@ def run_sfm(
     """images (N, H, W[, 3]) float in [0,1] -> SfMScene (poses + sparse points),
     every phase on `device` (CUDA unless the CPU is asked for).
 
+    With `colmap_database`, features and verified matches are loaded from an
+    existing COLMAP database.db (sfm/colmap_db.py) instead of being computed:
+    the hand-off point for users of COLMAP-based SfM. Intrinsics default to
+    the DB's camera when not given. With `export_database`, the mapper's
+    final features and verified matches are written to a database.db.
+
     SfM runs in full f32: `resolve_device` turns TF32 off on CUDA (in the
-    reference, bf16 matmul passes lose most registrations). The COLMAP
-    database arguments are not ported yet and raise NotImplementedError."""
-    for name, arg in (("colmap_database", colmap_database),
-                      ("export_database", export_database)):
-        if arg is not None:
-            raise NotImplementedError(f"run_sfm({name}=...) is not ported yet: {_DB_ITEM}")
+    reference, bf16 matmul passes lose most registrations)."""
     cfg = cfg or MapperConfig()
-    m = IncrementalMapper(images, cfg, fx=fx, fy=fy, cx=cx, cy=cy, log_fn=log_fn,
-                          device=device)
-    m.extract_all()
-    m.match_all()
+    if colmap_database is not None:
+        m = _mapper_from_database(images, cfg, colmap_database, fx, fy, cx, cy, log_fn,
+                                  device)
+    else:
+        m = IncrementalMapper(images, cfg, fx=fx, fy=fy, cx=cx, cy=cy, log_fn=log_fn,
+                              device=device)
+        m.extract_all()
+        m.match_all()
     m.build_tracks()
     scene = m.reconstruct()
     m._log_timers("done")
+    if export_database is not None:
+        # post-reconstruct: a focal-multistart restart rebuilds matches,
+        # so the exported DB reflects the FINAL intrinsics' match sets
+        m.export_colmap_database(export_database)
     return scene
+
+
+def _mapper_from_database(images, cfg, db_path, fx, fy, cx, cy, log_fn, device=None):
+    """Seed an IncrementalMapper from a COLMAP database.db: keypoints +
+    descriptors become the feature sets (u8 descriptors renormalized to the
+    unit-norm f32 convention), two_view_geometries (falling back to raw
+    matches) become the verified pair sets. Image order follows the DB's
+    image_id order, which must match the order of `images`."""
+    from dataclasses import replace
+
+    from tpu_splat_torch.sfm.colmap_db import read_database
+
+    db = read_database(db_path)
+    cam = db["cameras"].get(1) or next(iter(db["cameras"].values()))
+    p = cam["params"]
+    model = cam["model"]
+    if fx is None and cam is not None:
+        if model in (0, 2):  # SIMPLE_PINHOLE / SIMPLE_RADIAL
+            fx = fy = float(p[0])
+            cx, cy = float(p[1]), float(p[2])
+        elif model == 1:  # PINHOLE
+            fx, fy = float(p[0]), float(p[1])
+            cx, cy = float(p[2]), float(p[3])
+    # build_tracks strides the union-find by max_features — it must bound the
+    # DB's per-image keypoint counts
+    max_k = max((len(kp) for kp in db["keypoints"].values()), default=0)
+    if max_k > cfg.feature.max_features:
+        cfg = replace(cfg, feature=replace(cfg.feature, max_features=max_k))
+    m = IncrementalMapper(images, cfg, fx=fx, fy=fy, cx=cx, cy=cy,
+                          log_fn=log_fn, device=device)
+    n = len(images)
+    feats = []
+    for i in range(n):
+        kp = db["keypoints"].get(i + 1)
+        if kp is None:
+            raise ValueError(f"database has no keypoints for image_id {i + 1}")
+        k = len(kp)
+        desc = db["descriptors"].get(i + 1)
+        if desc is not None:
+            d = desc.astype(np.float32) / 512.0
+            d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+        else:
+            d = np.zeros((k, 128), np.float32)
+        # scale/orientation from the affine columns when present (6-col form)
+        if kp.shape[1] >= 6:
+            scale = np.sqrt(np.maximum(
+                kp[:, 2] * kp[:, 5] - kp[:, 3] * kp[:, 4], 1e-12))
+            orient = np.arctan2(kp[:, 4], kp[:, 2])
+        elif kp.shape[1] >= 4:
+            scale, orient = kp[:, 2], kp[:, 3]
+        else:
+            scale = np.ones(k, np.float32)
+            orient = np.zeros(k, np.float32)
+        feats.append(Features(
+            xy=np.asarray(kp[:, :2], np.float32),
+            scale=np.asarray(scale, np.float32),
+            orientation=np.asarray(orient, np.float32),
+            response=np.ones((k,), np.float32),
+            descriptor=np.asarray(d, np.float32),
+            valid=np.ones((k,), bool),
+        ))
+    m.feats = feats
+    # the device copies extraction would leave, padded with invalid rows to
+    # the largest keypoint count (a COLMAP database's counts differ)
+    k_max = max(len(f.xy) for f in feats)
+    desc = np.zeros((n, k_max, 128), np.float32)
+    valid = np.zeros((n, k_max), bool)
+    for i, f in enumerate(feats):
+        desc[i, :len(f.xy)] = f.descriptor
+        valid[i, :len(f.xy)] = True
+    m._desc_d, m._valid_d = m._t(desc), m._t(valid, torch.bool)
+    source = db["two_view"] or db["matches"]
+    m.pair_matches = {}
+    m.pair_inliers = {}
+    for (a, b), idx in source.items():
+        if a < n and b < n and len(idx) >= cfg.min_pair_inliers:
+            m.pair_matches[(a, b)] = np.asarray(idx, np.int64)
+            m.pair_inliers[(a, b)] = len(idx)
+    if m.log:
+        m.log(f"colmap db: {len(feats)} feature sets, "
+              f"{len(m.pair_matches)} verified pairs loaded")
+    if model == 2 and len(p) >= 4 and abs(float(p[3])) > 1e-8:
+        m.k1 = float(p[3])  # DB's SIMPLE_RADIAL k1: _norm_coords undistorts
+    return m
