@@ -49,13 +49,37 @@ the JAX package. Phases, each of which raises on failure:
    binary models hold the registered ones, the .ply and .spz the trained
    gaussian count) and every pose, point and gaussian is finite. Prints each
    component's seconds, the mapper's timers, the self-calibrated k1, the
-   training's step time and held-out PSNR.
+   training's step time and held-out PSNR;
+8. a --remove-background job: 16 frames of 1280x720 of testing.subject_scene
+   (a rock on a dim ground) on an arc, zipped as PNGs, a job JSON written by
+   the port's generator (`generate_splat --remove-background --job-only`,
+   maxSteps lowered to 300) and run by the CLI. Raises unless it completes,
+   every artifact reads back as in phase 7, every frame's mask covers
+   (0.05, 0.80) of it and the registered frames' masks reach Train-Stage1.
+   Then MatNet on the card against the port on the CPU (two of the job's
+   frames: saliency max abs <= 1e-3, 0.1% of the mask; each f32 result's
+   distance from the f64 one is printed), its IoU on
+   tests/test_matting_quality.py's composite capture (> 0.9, the
+   reference's bar), and the full U2Net from a
+   seeded standard .pth through TPU_SPLAT_U2NET_WEIGHTS: remove_background_
+   batch on 4 frames, and the card's saliency of one frame against the CPU's
+   (max abs <= 1e-3; the CPU's f32 against f64 is printed beside it). Prints
+   ms a frame of MatNet (256x256, batch 8) and U2Net (320x320, batch 4);
+9. a --spherical job: 4 equirectangular frames of 512x1024 of
+   testing.room_scene, assembled from cube faces rendered by the port with
+   cubemap_to_erp, zipped, a job JSON from `generate_splat --spherical
+   --preset fast --job-only` with maxSteps 300 and cubeFacesToRemove
+   "up,down" (64 views of 256x256; at 6 frames, 96 views, SfM alone took
+   3.5-5 minutes on the H100's host), run by the CLI. Raises unless it
+   completes, times Spherical-To-Perspective, hands SfM as many images as
+   the expansion makes, and writes a .spz that reads back with more than
+   100 gaussians. Prints erp_to_perspective's ms a view.
 
-The launch counters are zeroed just before each of the three training paths
-(phases 4, 5 and 7) and read just after it; both kernels must have launched
-in each. SfM holds no hand-written kernel. The line before the last is the
-{"kernels": [...]} record, with phase 4's launches; the last line is
-{"ok": true, "device": {...}}.
+The launch counters are zeroed just before each of the five training paths
+(phases 4, 5, 7, 8 and 9) and read just after it; both kernels must have
+launched in each. SfM and the matting nets hold no hand-written kernel.
+The line before the last is the {"kernels": [...]} record, with phase 4's
+launches; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,8 +94,10 @@ import time
 
 import numpy as np
 
-from tpu_splat_torch.testing import (RAGGED_COUNTS, build_packed, centre_rmse,
-                                     render_capture, ring_viewmats, synthetic_capture,
+from tpu_splat_torch.testing import (RAGGED_COUNTS, SUBJECT_BACKGROUND, arc_viewmats,
+                                     build_packed, centre_rmse, composite_scene, mask_iou,
+                                     render_capture, render_erp, ring_viewmats, room_scene,
+                                     seeded_u2net_state_dict, subject_scene, synthetic_capture,
                                      textured_scene, walk_viewmats)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +117,7 @@ BWD_OPS_PER_PAIR = 66
 FWD_BAR, BWD_BAR = 2e-5, 5e-5
 WALK_SPAN = 5.0  # testing.walk_viewmats' default: phase 6's capture
 JOB_STEPS = 600  # phase 7: past the first refine pass, at step 500
+OPTION_STEPS = 300  # phases 8 and 9: the jobs' maxSteps, lowered from the preset's
 
 
 def log(msg: str) -> None:
@@ -579,43 +606,32 @@ def sfm_phase(dev, rng) -> np.ndarray:
     return images
 
 
-def job_phase(images: np.ndarray, job_steps: int) -> None:
-    """Phase 7 (see the module docstring): a default job through the CLI."""
-    import contextlib
-    import io
-    import logging
-    import shutil
+def zip_frames(images: np.ndarray, zip_path: str) -> None:
+    """The frames as 8-bit PNGs in a .zip, as a user uploads a capture."""
     import zipfile
 
     import cv2
 
-    from tpu_splat_torch.cli.main import main as cli_main
-    from tpu_splat_torch.core.ply import load_ply
-    from tpu_splat_torch.core.spz import load_spz
-    from tpu_splat_torch.gs import cuda_raster as cr
-    from tpu_splat_torch.sfm.colmap_db import read_database
-    from tpu_splat_torch.sfm.colmap_io import count_points3d, read_colmap_model
-
-    root = os.path.join(OUT_DIR, "job")
-    shutil.rmtree(root, ignore_errors=True)  # no checkpoint of an earlier run resumes
-    os.makedirs(root)
-    zip_path = os.path.join(root, "capture.zip")
-    t0 = time.time()
     with zipfile.ZipFile(zip_path, "w") as zf:
         for i, img in enumerate(images):
             bgr = (np.clip(img[..., ::-1], 0, 1) * 255).round().astype(np.uint8)
             zf.writestr(f"capture/frame_{i:04d}.png", cv2.imencode(".png", bgr)[1].tobytes())
-    uuid, out = "chip-smoke-default-job", os.path.join(root, "out")
-    job_path = os.path.join(root, "job.json")
-    with open(job_path, "w") as f:  # the reference's defaults, but for maxSteps
-        json.dump({"uuid": uuid, "inputPath": zip_path, "outputPath": out,
-                   "training": {"maxSteps": job_steps}}, f)
-    log(f"[job] {len(images)} frames {images.shape[2]}x{images.shape[1]} as 8-bit PNGs in "
-        f"{os.path.relpath(zip_path, ROOT)} ({os.path.getsize(zip_path) / 2**20:.1f} MiB, "
-        f"{time.time() - t0:.1f} s); job: defaults, maxSteps {job_steps}")
+
+
+def run_cli_job(job_path: str, path: str, log_name: str):
+    """Run a job JSON through the port's CLI (`run`, on the card) with the
+    launch counters zeroed just before; raises unless it completes and both
+    kernels launched. Returns (CLI result, pipeline log lines, launches,
+    seconds); the log is kept whole in build/chip_smoke/<log_name>."""
+    import contextlib
+    import io
+    import logging
+
+    from tpu_splat_torch.cli.main import main as cli_main
+    from tpu_splat_torch.gs import cuda_raster as cr
 
     lines = []
-    log_path = os.path.join(OUT_DIR, "job_log.txt")
+    log_path = os.path.join(OUT_DIR, log_name)
 
     class Keep(logging.Handler):
         def emit(self, record):
@@ -636,17 +652,30 @@ def job_phase(images: np.ndarray, job_steps: int) -> None:
         with open(log_path, "w") as f:
             f.write("\n".join(lines) + "\n")
     job_s = time.time() - t0
-    launches = main_path_launches("default job (CLI run)")
+    launches = main_path_launches(path)
     if rc != 0:
         raise AssertionError(f"the CLI run exited {rc}; its log: {log_path}")
     res = json.loads(stdout.getvalue())
     if res["status"] != "Complete":
         raise AssertionError(f"job status {res['status']}")
-    metrics, timings = res["metrics"], res["timings"]
-    n_reg = int(metrics["num_registered"])
-    if n_reg < 14:
-        raise AssertionError(f"the job registered {n_reg} of {len(images)} frames")
+    return res, lines, launches, job_s
 
+
+def check_job_artifacts(root: str, out: str, uuid: str, res: dict, n_frames: int):
+    """Every default artifact of a completed job is present and reads back:
+    the database holds every frame, the text and binary models hold the
+    registered ones, the .ply and .spz the trained gaussian count, and every
+    pose, point and gaussian is finite. Returns (database, sparse point
+    count)."""
+    import shutil
+
+    from tpu_splat_torch.core.ply import load_ply
+    from tpu_splat_torch.core.spz import load_spz
+    from tpu_splat_torch.sfm.colmap_db import read_database
+    from tpu_splat_torch.sfm.colmap_io import count_points3d, read_colmap_model
+
+    metrics = res["metrics"]
+    n_reg = int(metrics["num_registered"])
     colmap, sparse = os.path.join(out, "colmap"), os.path.join(out, "colmap", "sparse", "0")
     wanted = [os.path.join(colmap, "database.db"), os.path.join(colmap, "transforms.json"),
               os.path.join(out, "exports", "splat.ply"), os.path.join(out, "exports", "splat.spz"),
@@ -662,9 +691,7 @@ def job_phase(images: np.ndarray, job_steps: int) -> None:
             raise AssertionError("the job store does not say Complete")
 
     db = read_database(os.path.join(colmap, "database.db"))
-    cam = db["cameras"][1]
-    k1 = float(cam["params"][3]) if cam["model"] == 2 else 0.0
-    if len(db["images"]) != len(images) or len(db["keypoints"]) != len(images):
+    if len(db["images"]) != n_frames or len(db["keypoints"]) != n_frames:
         raise AssertionError(f"the database holds {len(db['images'])} images")
     models = {}
     for kind in ("txt", "bin"):
@@ -689,28 +716,321 @@ def job_phase(images: np.ndarray, job_steps: int) -> None:
     for name in ("means", "scales", "quats", "opacities", "sh0", "shN"):
         if not np.isfinite(getattr(ply, name)).all():
             raise AssertionError(f"the delivered .ply has a non-finite {name}")
+    return db, n_pts
 
-    undistorted = next((s for s in lines if s.startswith("undistorting")), None)
+
+def log_job(tag: str, res: dict, lines: list, steps: int) -> None:
+    """A job's component seconds, mapper timers and training rate."""
+    metrics, timings = res["metrics"], res["timings"]
     sfm_timers = [s for s in lines if s.startswith("sfm timers")][-1]
     rates = [s for s in lines if s.startswith("step ") and "it/s" in s]
     train_s = timings["Train-Stage1"]
-    log("[job] components, s: " + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
-    log(f"[job] {sfm_timers}")
-    log(f"[job] registered {n_reg}/{len(images)}, {n_pts} points; self-calibrated k1 "
-        f"{k1:+.5f}; undistortion "
-        + (f"ran ({undistorted})" if undistorted else "did not run"))
-    log(f"[job] training: {job_steps} steps in {train_s:.2f} s = "
-        f"{1e3 * train_s / job_steps:.2f} ms/step with evaluation and export of the cloud "
+    log(f"[{tag}] components, s: " + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
+    log(f"[{tag}] {sfm_timers}")
+    log(f"[{tag}] training: {steps} steps in {train_s:.2f} s = "
+        f"{1e3 * train_s / steps:.2f} ms/step with evaluation and export of the cloud "
         f"({rates[-1] if rates else 'no rate logged'}); "
         + (f"held-out psnr {metrics['psnr']:.3f} over {int(metrics['eval_views'])} views"
            if metrics["eval_views"] else
            f"train-view psnr {metrics['psnr']:.3f} (under 16 registered: no held-out split)")
         + f"; {int(metrics['num_gaussians'])} gaussians")
-    log("[job] artifacts: " + ", ".join(
+    log(f"[{tag}] artifacts: " + ", ".join(
         f"{k} {os.path.getsize(v) / 2**20:.2f} MiB" for k, v in res["artifacts"].items()))
+
+
+def job_phase(images: np.ndarray, job_steps: int) -> None:
+    """Phase 7 (see the module docstring): a default job through the CLI."""
+    import shutil
+
+    root = os.path.join(OUT_DIR, "job")
+    shutil.rmtree(root, ignore_errors=True)  # no checkpoint of an earlier run resumes
+    os.makedirs(root)
+    zip_path = os.path.join(root, "capture.zip")
+    t0 = time.time()
+    zip_frames(images, zip_path)
+    uuid, out = "chip-smoke-default-job", os.path.join(root, "out")
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:  # the reference's defaults, but for maxSteps
+        json.dump({"uuid": uuid, "inputPath": zip_path, "outputPath": out,
+                   "training": {"maxSteps": job_steps}}, f)
+    log(f"[job] {len(images)} frames {images.shape[2]}x{images.shape[1]} as 8-bit PNGs in "
+        f"{os.path.relpath(zip_path, ROOT)} ({os.path.getsize(zip_path) / 2**20:.1f} MiB, "
+        f"{time.time() - t0:.1f} s); job: defaults, maxSteps {job_steps}")
+
+    res, lines, launches, job_s = run_cli_job(job_path, "default job (CLI run)", "job_log.txt")
+    n_reg = int(res["metrics"]["num_registered"])
+    if n_reg < 14:
+        raise AssertionError(f"the job registered {n_reg} of {len(images)} frames")
+    db, n_pts = check_job_artifacts(root, out, uuid, res, len(images))
+    cam = db["cameras"][1]
+    k1 = float(cam["params"][3]) if cam["model"] == 2 else 0.0
+
+    undistorted = next((s for s in lines if s.startswith("undistorting")), None)
+    log_job("job", res, lines, job_steps)
+    log(f"[job] registered {n_reg}/{len(images)}, {n_pts} points; self-calibrated k1 "
+        f"{k1:+.5f}; undistortion "
+        + (f"ran ({undistorted})" if undistorted else "did not run"))
     log(f"[job] CLI run {job_s:.1f} s (launches {launches}); its log: "
-        f"{os.path.relpath(log_path, ROOT)}")
+        f"{os.path.relpath(os.path.join(OUT_DIR, 'job_log.txt'), ROOT)}")
     log(f"[job] {card_line()}")
+
+
+def conv_flops(net, shape, device) -> float:
+    """The FLOPs of a net's convolutions on one input of `shape` (two per
+    multiply-add), counted from their output sizes in a forward pass."""
+    import torch
+
+    total = [0]
+
+    def count(mod, _, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            net(torch.zeros(shape, device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(total[0])
+
+
+def generated_job(root: str, capture: str, flags: list, edits: dict, tag: str) -> tuple:
+    """Write a job JSON with the port's generator, as a user would
+    (`python -m tpu_splat_torch.cli.generate_splat <capture> -o <out> <flags>
+    --job-only`), then apply the smoke's `edits` ({section: {key: value}}).
+    Returns (job path, job dict)."""
+    import contextlib
+    import io
+
+    from tpu_splat_torch.cli import generate_splat
+
+    out = os.path.join(root, "out")
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        rc = generate_splat.main([capture, "-o", out, *flags, "--job-only"])
+    if rc != 0:
+        raise AssertionError(f"generate_splat {flags} exited {rc}")
+    job_path = stdout.getvalue().strip().splitlines()[-1].split("job JSON: ", 1)[1]
+    with open(job_path) as f:
+        job = json.load(f)
+    for section, values in edits.items():
+        job[section].update(values)
+    with open(job_path, "w") as f:
+        json.dump(job, f, indent=2)
+    log(f"[{tag}] generate_splat {' '.join(flags)} --job-only wrote "
+        f"{os.path.relpath(job_path, ROOT)}; the smoke sets only {json.dumps(edits)}")
+    return job_path, job
+
+
+def remove_background_phase(dev, steps: int) -> None:
+    """Phase 8 (see the module docstring): a --remove-background job, then
+    MatNet and the full U2Net held against the port on the CPU."""
+    import shutil
+
+    import torch
+
+    from tpu_splat_torch.gs import pipeline as gs_pipeline
+    from tpu_splat_torch.matting import remove
+    from tpu_splat_torch.matting.matnet import (_RES, bundled_weights_path, load_matnet,
+                                                matnet_saliency, resize_bilinear)
+    from tpu_splat_torch.matting.u2net import load_u2net, u2net_apply
+
+    root = os.path.join(OUT_DIR, "remove_background")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_views, width, height, focal = 16, 1280, 720, 700.0
+    t0 = time.time()
+    scene, n_rock = subject_scene(np.random.default_rng(8))
+    vms = arc_viewmats(n_views)
+    images = render_capture(scene, vms, focal, width, height, background=SUBJECT_BACKGROUND,
+                            max_per_tile=1024, device=dev)
+    frames = np.round(np.clip(images, 0, 1) * 255) / 255  # the job's 8-bit frames
+    zip_path = os.path.join(root, "capture.zip")
+    zip_frames(images, zip_path)
+    log(f"[matting] capture: subject_scene's rock ({n_rock} of {len(scene[0])} gaussians) "
+        f"on a 120-degree arc, {n_views} frames {width}x{height}, fx {focal}, rendered and "
+        f"zipped in {time.time() - t0:.1f} s")
+
+    job_path, job = generated_job(root, zip_path, ["--remove-background"],
+                                  {"training": {"maxSteps": steps}}, "matting")
+    seen = {}
+    removal, train = remove.remove_background_batch, gs_pipeline.train_splat
+
+    def spy_removal(*args, **kw):
+        out = removal(*args, **kw)
+        seen["masks"] = out[1]
+        return out
+
+    def spy_train(scene, images, **kw):
+        seen["train_masks"] = kw.get("masks")
+        seen["train_images"] = len(images)
+        return train(scene, images, **kw)
+
+    remove.remove_background_batch, gs_pipeline.train_splat = spy_removal, spy_train
+    try:
+        res, lines, launches, job_s = run_cli_job(job_path, "--remove-background job",
+                                                  "remove_background_log.txt")
+    finally:
+        remove.remove_background_batch, gs_pipeline.train_splat = removal, train
+    frac = seen["masks"].reshape(len(seen["masks"]), -1).mean(axis=1)
+    log(f"[matting] mask fraction per frame: {[round(float(f), 4) for f in frac]}")
+    if not ((frac > 0.05) & (frac < 0.80)).all():
+        raise AssertionError(f"a mask covers {frac.min():.4f}-{frac.max():.4f} of its frame, "
+                             "outside (0.05, 0.80)")
+    n_reg = int(res["metrics"]["num_registered"])
+    tm = seen["train_masks"]
+    if tm is None or len(tm) != n_reg or seen["train_images"] != n_reg:
+        raise AssertionError(f"masks did not reach Train-Stage1 for the {n_reg} registered "
+                             f"frames: {None if tm is None else tm.shape}")
+    _, n_pts = check_job_artifacts(root, job["outputPath"], job["uuid"], res, n_views)
+    log_job("matting", res, lines, steps)
+    log(f"[matting] registered {n_reg}/{n_views}, {n_pts} points; masks reached "
+        f"Train-Stage1: {tm.shape[0]} of {tm.shape[1]}x{tm.shape[2]}, mean fraction "
+        f"{float(tm.mean()):.4f}")
+    log(f"[matting] CLI run {job_s:.1f} s (launches {launches})")
+
+    # MatNet: the card against the CPU on two of the job's frames, its IoU on
+    # the matting test's composite capture, and its time per frame
+    pair = frames[[0, n_views // 2]].astype(np.float32)
+    sal_card, sal_cpu = matnet_saliency(pair, device=dev), matnet_saliency(pair, device="cpu")
+    with torch.no_grad():  # the exact result: the same net and resizes in f64
+        x = torch.from_numpy(pair.astype(np.float64)).permute(0, 3, 1, 2)
+        net64 = load_matnet(bundled_weights_path(), "cpu").double()
+        sal_f64 = resize_bilinear(torch.sigmoid(net64(resize_bilinear(x, (_RES, _RES))))[:, None],
+                                  (height, width))[:, 0].numpy()
+    err = float(np.abs(sal_card - sal_cpu).max())
+    err64 = {k: float(np.abs(v - sal_f64).max()) for k, v in (("card", sal_card),
+                                                               ("cpu", sal_cpu))}
+    flips = float(np.mean((sal_card > 0.5) != (sal_cpu > 0.5)))
+    log(f"[matting] MatNet saliency on frames 0 and {n_views // 2}, card against CPU: max abs "
+        f"{err:.3e}, {flips:.2e} of the pixels on the other side of 0.5; against f64: card "
+        f"{err64['card']:.3e}, CPU {err64['cpu']:.3e}")
+    # An f32 result can sit 1e-4 or more from the exact one on these frames
+    # (group norms of near-flat groups amplify the convolutions' rounding;
+    # the CPU's result sat 1.2e-4 away on the H100's host), so two f32
+    # results cannot be held within 1e-4 of each other: the bar is 1e-3 on
+    # the saliency, and 0.1% of pixels on the mask it cuts.
+    if not (err <= 1e-3 and flips <= 1e-3):
+        raise AssertionError(f"MatNet on the card differs from the CPU by {err:.3e} "
+                             f"({flips:.2e} of the mask)")
+    comp, gt = composite_scene()
+    iou = {}
+    for model in ("u2net", "sam2"):
+        _, masks = remove.remove_background_batch(comp, model=model, keyframe_every=4,
+                                                  device=dev)
+        iou[model] = float(np.mean([mask_iou(m, g) for m, g in zip(masks, gt)]))
+    log(f"[matting] composite capture IoU on the card: MatNet (u2net mode) "
+        f"{iou['u2net']:.4f}, sam2 mode {iou['sam2']:.4f}")
+    if not iou["u2net"] > 0.9:
+        raise AssertionError(f"MatNet IoU {iou['u2net']:.4f} <= 0.9")
+    net = load_matnet(bundled_weights_path(), dev)
+    x = torch.rand((8, 3, _RES, _RES), device=dev)
+    with torch.no_grad():
+        matnet_ms = time_ms(lambda: net(x), 10) / 8
+    flop = conv_flops(net, (1, 3, _RES, _RES), dev)
+    log(f"[matting] MatNet {_RES}x{_RES}, batch 8: {matnet_ms:.3f} ms a frame; "
+        f"{flop / 1e9:.3f} GFLOP of convolutions a frame, {flop / matnet_ms / 1e9:.2f} TFLOP/s")
+
+    # the full U2Net from a standard .pth, through TPU_SPLAT_U2NET_WEIGHTS
+    pth = os.path.join(OUT_DIR, "u2net_seeded.pth")
+    torch.save(seeded_u2net_state_dict(0, device=dev), pth)
+    os.environ["TPU_SPLAT_U2NET_WEIGHTS"] = pth
+    try:
+        t0 = time.time()
+        _, masks = remove.remove_background_batch(frames[:4].astype(np.float32),
+                                                  model="u2net", device=dev)
+        u2_s = time.time() - t0
+        one = frames[:1].astype(np.float32)
+        sal_card = remove._u2net_masks(one, pth, dev)
+        sal_cpu = remove._u2net_masks(one, pth, "cpu")
+    finally:
+        del os.environ["TPU_SPLAT_U2NET_WEIGHTS"]
+    with torch.no_grad():
+        sal_f64 = u2net_apply(load_u2net(pth, "cpu").double(),
+                              torch.from_numpy(one.astype(np.float64))).numpy()
+    err = float(np.abs(sal_card - sal_cpu).max())
+    err64 = float(np.abs(sal_cpu - sal_f64).max())
+    ufrac = masks.reshape(4, -1).mean(axis=1)
+    net = load_u2net(pth, dev)
+    x = torch.rand((4, 3, 320, 320), device=dev)
+    with torch.no_grad():
+        u2_ms = time_ms(lambda: net(x), 5) / 4
+    u2_flop = conv_flops(net, (1, 3, 320, 320), dev)
+    log(f"[matting] full U2Net ({sum(p.numel() for p in net.parameters())} parameters, "
+        f"seeded, from {os.path.relpath(pth, ROOT)}): remove_background_batch(u2net) on 4 "
+        f"frames in {u2_s:.2f} s, mask fractions {[round(float(f), 4) for f in ufrac]}; "
+        f"saliency of frame 0, card against CPU: max abs {err:.3e} (CPU f32 against f64: "
+        f"{err64:.3e}); 320x320, batch 4: {u2_ms:.3f} ms a frame, {u2_flop / 1e9:.1f} GFLOP "
+        f"of convolutions, {u2_flop / u2_ms / 1e9:.2f} TFLOP/s")
+    # The seeded net's saliency is min-max normalised after 119 convolutions,
+    # and f32 rounding alone moves it by err64 (1.3e-4 on the H100's host):
+    # each device may differ from the exact result by about that much, so
+    # the bar is 1e-3, about four times the sum.
+    if not (np.isfinite(masks).all() and err <= 1e-3):
+        raise AssertionError(f"U2Net saliency on the card differs from the CPU by {err:.3e}")
+    log(f"[matting] {card_line()}")
+
+
+def spherical_phase(dev, steps: int) -> None:
+    """Phase 9 (see the module docstring): a --spherical job on ERP frames
+    that the port rendered."""
+    import shutil
+
+    import torch
+
+    from tpu_splat_torch.core.config import SphericalCameraConfig
+    from tpu_splat_torch.core.spz import load_spz
+    from tpu_splat_torch.spherical.pipeline import view_sequence
+    from tpu_splat_torch.spherical.projections import erp_to_perspective, rotation_yaw_pitch
+
+    root = os.path.join(OUT_DIR, "spherical")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_frames, erp_height = 4, 512
+    t0 = time.time()
+    scene = room_scene(np.random.default_rng(9))
+    eyes = np.stack([[1.5 * np.cos(a), -0.3, 1.5 * np.sin(a)]
+                     for a in np.linspace(0.2, 1.6, n_frames)])
+    erps = render_erp(scene, eyes, erp_height, erp_height, device=dev)
+    zip_path = os.path.join(root, "capture.zip")
+    zip_frames(erps, zip_path)
+    log(f"[spherical] capture: room_scene ({len(scene[0])} gaussians), {n_frames} ERP "
+        f"frames {2 * erp_height}x{erp_height} from {erp_height}x{erp_height} cube faces "
+        f"rendered by the port, rendered and zipped in {time.time() - t0:.1f} s")
+    job_path, job = generated_job(
+        root, zip_path, ["--spherical", "--preset", "fast"],
+        {"training": {"maxSteps": steps}, "sphericalCamera": {"cubeFacesToRemove": "up,down"}},
+        "spherical")
+    cfg = SphericalCameraConfig(enable=True, cube_faces_to_remove="up,down")
+    views = view_sequence(n_frames, cfg)
+    face = max(erp_height // 2, 256)
+
+    res, lines, launches, job_s = run_cli_job(job_path, "--spherical job", "spherical_log.txt")
+    metrics, timings = res["metrics"], res["timings"]
+    if "Spherical-To-Perspective" not in timings:
+        raise AssertionError("the job did not time Spherical-To-Perspective")
+    if int(metrics["num_images"]) != len(views):
+        raise AssertionError(f"SfM saw {metrics['num_images']} images, the expansion makes "
+                             f"{len(views)}")
+    n_g = load_spz(res["artifacts"]["spz"]).num_points
+    if not (n_g == int(metrics["num_gaussians"]) and n_g > 100):
+        raise AssertionError(f"the .spz holds {n_g} gaussians (trained "
+                             f"{metrics['num_gaussians']}); at least 101 are needed")
+    erp = torch.as_tensor(erps, device=dev)
+    rots = torch.as_tensor(np.stack([rotation_yaw_pitch(y, p) for _, y, p in views]),
+                           dtype=torch.float32)
+    src = torch.as_tensor([fi for fi, _, _ in views])
+    view_ms = time_ms(lambda: erp_to_perspective(erp, rots, face, face, 90.0, frames=src),
+                      10) / len(views)
+    log_job("spherical", res, lines, steps)
+    log(f"[spherical] expansion: {len(views)} views of {face}x{face} in "
+        f"{timings['Spherical-To-Perspective']:.2f} s; erp_to_perspective {view_ms:.4f} ms a "
+        f"view ({len(views)} in one gather); registered {int(metrics['num_registered'])}/"
+        f"{len(views)}; .spz read back with {n_g} gaussians")
+    log(f"[spherical] CLI run {job_s:.1f} s (launches {launches})")
+    log(f"[spherical] {card_line()}")
 
 
 def main() -> int:
@@ -868,6 +1188,12 @@ def main() -> int:
     # 7. a default job on phase 6's frames, through the CLI
     job_phase(sfm_images, JOB_STEPS)
     del sfm_images
+
+    # 8. a --remove-background job, and the matting nets against the CPU
+    remove_background_phase(dev, OPTION_STEPS)
+
+    # 9. a --spherical job on ERP frames rendered by the port
+    spherical_phase(dev, OPTION_STEPS)
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

@@ -1,7 +1,8 @@
 """The port's ingest (tpu_splat_torch/ingest/video.py and blur.py) against
 the JAX package's on seeded media: decoded frames, loaded images, archive
 contents, EXIF focal and alpha compositing equal; Laplacian-variance scores
-within 1e-6 relative and the selected frame indices equal."""
+within 1e-6 relative, saliency-masked scores within 1e-4 relative, and the
+selected frame indices equal."""
 
 import os
 import zipfile
@@ -134,7 +135,28 @@ def test_blur_scores_and_selection_match_reference():
         np.testing.assert_array_equal(gi, wi)
 
 
-def test_saliency_blur_mask_raises_not_implemented():
-    frames = seeded_frames(4).astype(np.float32) / 255.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblur.filter_blurry_images(frames, target_count=2, mask_method="u2net")
+@pytest.mark.parametrize("weights", ["matnet", "classical"])
+def test_saliency_blur_scores_match_reference(weights, monkeypatch):
+    """Saliency-masked scores from MatNet's masks, and from the classical
+    saliency when no MatNet weights are found (with the copied uint8 quirk),
+    Farneback-warped and filtered through time on the host."""
+    from tpu_splat.matting import matnet as jmatnet
+    from tpu_splat_torch.matting import matnet as tmatnet
+
+    if weights == "classical":
+        monkeypatch.setattr(jmatnet, "bundled_weights_path", lambda: None)
+        monkeypatch.setattr(tmatnet, "bundled_weights_path", lambda: None)
+    frames = seeded_frames(8, seed=2).astype(np.float32) / 255.0
+    got = tblur.saliency_laplacian_variance(frames, decay_frames=2.0, device="cpu")
+    want = jblur.saliency_laplacian_variance(frames, decay_frames=2.0)
+    assert got.shape == (8,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
+def test_saliency_blur_filter_selects_reference_frames():
+    frames = seeded_frames(8, seed=3).astype(np.float32) / 255.0
+    (gi, gx), (wi, wx) = (
+        tblur.filter_blurry_images(frames, target_count=4, mask_method="u2net", device="cpu"),
+        jblur.filter_blurry_images(frames, target_count=4, mask_method="u2net"))
+    np.testing.assert_array_equal(gx, wx)
+    np.testing.assert_array_equal(gi, wi)

@@ -39,12 +39,15 @@ def _port_files():
 def test_port_imports_no_jax_and_no_reference_package():
     bad = []
     files = _port_files()
-    # the SfM slice's modules and the default job's are scanned too
+    # the SfM slice's modules, the default job's, matting's and spherical's
+    # are scanned too
     scanned = {os.path.relpath(f, REPO) for f in files}
     new = {"sfm/" + m for m in ("geometry", "features", "matching", "ba", "intrinsics",
                                 "mapper", "undistort", "colmap_io", "colmap_db")}
     new |= {"core/config", "core/errors", "ingest/video", "ingest/blur", "export/transforms",
             "pipeline/component", "pipeline/runner", "pipeline/sink", "cli/main"}
+    new |= {"matting/matnet", "matting/u2net", "matting/remove", "matting/synthdata",
+            "spherical/projections", "spherical/pipeline", "cli/generate_splat"}
     assert {os.path.join("tpu_splat_torch", *m.split("/")) + ".py" for m in new} <= scanned
     assert len(files) > 40
     for path in files:

@@ -6,7 +6,10 @@ with run_sfm and train_splat replaced in each by the same fast fake (a fixed
 scene with a nonzero k1, and a fixed cloud), so every other stage runs for
 real: ingest, blur filtering, undistortion, the COLMAP model, the delivery
 rotation and the artifact sink. The component graph, artifacts, metrics, job
-store, undistorted frames and delivered bytes are compared."""
+store, undistorted frames and delivered bytes are compared. So are the
+matting and spherical components (a --remove-background job, the human-
+subject removal with and without a masks/ directory, the 360-degree
+expansion) and the generator's job JSON (cli/generate_splat.py)."""
 
 import dataclasses
 import json
@@ -254,10 +257,6 @@ def test_portrait_capture_gets_the_y_rotation_of_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("payload", [
-    {"segmentation": {"removeBackground": "true"}},
-    {"segmentation": {"removeHumanSubject": "true"}},
-    {"imageProcessing": {"blurMaskMethod": "u2net"}},
-    {"sphericalCamera": {"enable": "true"}},
     {"sfm": {"posePriors": {"usePosePriorColmapModelFiles": "true"}}},
     {"sfm": {"posePriors": {"usePosePriorTransformJson": {"enable": "true"}}}},
     {"sfm": {"softwareName": "glomap"}},
@@ -273,6 +272,153 @@ def test_unported_components_fail_before_any_stage(tmp_path, fakes, payload):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1[0-4]"):
         trunner.run_job(cfg, device="cpu")
     assert not os.path.exists(tmp_path / "out") and not calls["port"]
+
+
+@pytest.mark.parametrize("payload", [
+    {"segmentation": {"removeBackground": "true"}},
+    {"segmentation": {"removeHumanSubject": "true"}},
+    {"imageProcessing": {"blurMaskMethod": "u2net"}},
+    {"sphericalCamera": {"enable": "true"}},
+], ids=lambda p: next(iter(p)))
+def test_matting_and_spherical_components_are_ported(payload):
+    """These options run the reference's functions' ports, not a refusal."""
+    pipe = tcomp.Pipeline(name="g")
+    trunner._register_components(pipe, tconfig.job_config_from_json(payload))
+    enabled = [c for c in pipe.components if c.enabled]
+    assert not [c.name for c in enabled if isinstance(c.fn, trunner._NotPorted)]
+    ref = jcomp.Pipeline(name="g")
+    jrunner._register_components(ref, jconfig.job_config_from_json(payload), "")
+    assert [c.fn.__name__ for c in enabled] == [c.fn.__name__ for c in ref.components
+                                                if c.enabled]
+
+
+def composite_zip(path, n=N, w=W, h=H):
+    """testing.composite_scene's subject capture as 8-bit PNGs in a zip."""
+    import cv2
+
+    from tpu_splat_torch.testing import composite_scene
+
+    images, _ = composite_scene(n=n, h=h, w=w)
+    with zipfile.ZipFile(path, "w") as zf:
+        for i, img in enumerate(images):
+            png = cv2.imencode(".png", (img[..., ::-1] * 255).round().astype(np.uint8))[1]
+            zf.writestr(f"capture/frame_{i:03d}.png", png.tobytes())
+    return path
+
+
+def test_remove_background_job_matches_reference(tmp_path, fakes):
+    """A --remove-background job: the same frames are kept and masked, and
+    the masks of the registered frames, undistorted like the frames, reach
+    training (binary masks may differ in 0.1% of pixels, where MatNet's
+    saliency sits at 0.5)."""
+    calls, state = fakes
+    state["n_reg"] = 10  # of the 11 frames the blur filter keeps
+    zip_path = composite_zip(str(tmp_path / "capture.zip"))
+    res = run_both(tmp_path, {"segmentation": {"removeBackground": "true"},
+                              "videoProcessing": {"maxNumImages": 11},
+                              "training": {"maxSteps": 7}}, zip_path)
+    assert res["port"].status == res["ref"].status == "Complete"
+    assert list(res["port"].timings) == list(res["ref"].timings)
+    assert "Remove-Background" in res["port"].timings
+    got, want = calls["port"]["sfm"]["images"], calls["ref"]["sfm"]["images"]
+    assert got.shape == want.shape == (11, H, W, 3)
+    assert np.mean(np.abs(got - want) > 1e-4) <= 1e-3
+    assert 0.05 < np.mean(got.max(axis=-1) > 0) < 0.8  # the subject is kept
+    m_got, m_want = calls["port"]["train"]["kw"]["masks"], calls["ref"]["train"]["kw"]["masks"]
+    assert m_got.shape == np.asarray(m_want).shape == (10, H, W)  # the registered frames
+    assert np.mean(np.abs(m_got - np.asarray(m_want)) > 1e-4) <= 1e-3
+
+
+@pytest.mark.parametrize("mask_dir", [True, False], ids=["masks-dir", "person-matting"])
+def test_remove_human_subject_matches_reference(tmp_path, mask_dir):
+    """With a masks/ directory beside the frames (one mask per raw frame,
+    picked by the blur filter's indices) the reference's Otsu contract
+    applies, exactly; without one the person-segmentation matting runs.
+    Either way the masks kept are the complement, times earlier masks."""
+    import cv2
+
+    from tpu_splat_torch.testing import composite_scene
+
+    images, gt = composite_scene(n=6, h=H, w=W)
+    raw = tmp_path / "capture"
+    raw.mkdir()
+    if mask_dir:
+        (raw / "masks").mkdir()
+        for i in range(8):
+            m = gt[min(i, 5)] * 255 if i % 2 == 0 else cv2.GaussianBlur(gt[min(i, 5)], (5, 5),
+                                                                        1.5) * 255
+            cv2.imwrite(str(raw / "masks" / f"m{i:02d}.png"), m.astype(np.uint8))
+    prior = np.ones((6, H, W), np.float32)
+    prior[:, :4] = 0
+    out = {}
+    for pkg, comp, runner, config in (("ref", jcomp, jrunner, jconfig),
+                                      ("port", tcomp, trunner, tconfig)):
+        ctx = comp.PipelineContext(cfg=config.JobConfig(uuid="h"), out_dir=str(tmp_path))
+        if pkg == "port":
+            ctx["device"] = torch.device("cpu")
+        ctx.update(images=images.copy(), raw_dir=str(raw), masks=prior.copy(),
+                   frame_indices=np.array([0, 1, 2, 4, 6, 7]))
+        runner._remove_human_subject(ctx)
+        out[pkg] = (ctx["images"], ctx["masks"])
+    (gi, gm), (wi, wm) = out["port"], out["ref"]
+    assert gm.shape == (6, H, W) and not gm[:, :4].any()
+    if mask_dir:
+        np.testing.assert_array_equal(gm, wm)
+        np.testing.assert_array_equal(gi, wi)
+        assert 0.3 < gm.mean() < 0.95
+    else:
+        assert np.mean(gm != wm) <= 1e-3
+        assert np.mean(np.abs(gi - wi) > 1e-6) <= 1e-3
+
+
+def test_spherical_component_matches_reference(tmp_path):
+    """The expansion replaces the frames with the reference's views, in its
+    order, at the default face size (256 for these 64x128 frames)."""
+    images = np.random.default_rng(6).uniform(0, 1, (3, 64, 128, 3)).astype(np.float32)
+    payload = {"sphericalCamera": {"enable": "true", "cubeFacesToRemove": "up,down",
+                                   "useOvalNodes": "true"}}
+    out = {}
+    for pkg, comp, runner, config in (("ref", jcomp, jrunner, jconfig),
+                                      ("port", tcomp, trunner, tconfig)):
+        ctx = comp.PipelineContext(cfg=config.job_config_from_json(payload),
+                                   out_dir=str(tmp_path))
+        if pkg == "port":
+            ctx["device"] = torch.device("cpu")
+        ctx["images"] = images
+        runner._spherical(ctx)
+        out[pkg] = ctx["images"]
+    assert out["port"].shape == out["ref"].shape == (3 * 4 + 3 * 3 * 4, 256, 256, 3)
+    np.testing.assert_allclose(out["port"], out["ref"], atol=1e-5, rtol=0)
+
+
+def test_generate_splat_writes_the_reference_job_and_runs_it(tmp_path, fakes, capsys):
+    from tpu_splat.cli import generate_splat as jgen
+    from tpu_splat_torch.cli import generate_splat as tgen
+
+    assert tgen.PRESETS == jgen.PRESETS
+    for preset in tgen.PRESETS:
+        for bg in (False, True):
+            for sph in (False, True):
+                args = ("in/capture.zip", "out", preset, "splatfacto", bg, sph, "u-1")
+                got, want = tgen.build_job_json(*args), jgen.build_job_json(*args)
+                assert got.pop("instanceType") and want.pop("instanceType")
+                assert got == want
+                cfg = tconfig.job_config_from_json(got)
+                assert cfg.segmentation.remove_background == bg
+                assert cfg.spherical_camera.enable == sph
+    assert tgen.build_job_json("a.mp4")["uuid"] != tgen.build_job_json("a.mp4")["uuid"]
+
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    out = str(tmp_path / "out")
+    assert tgen.main([zip_path, "-o", out, "--preset", "fast", "--job-only"]) == 0
+    job_path = capsys.readouterr().out.strip().split("job JSON: ")[1]
+    job = json.load(open(job_path))
+    assert job["sfm"]["matchingMethod"] == "sequential" and job["training"]["maxSteps"] == 5000
+    assert os.listdir(out) == [os.path.basename(job_path)]
+    assert tgen.main([zip_path, "-o", out, "--remove-background", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out
+    res = json.loads(lines[lines.index("{"):])
+    assert res["status"] == "Complete" and "Remove-Background" in res["timings"]
 
 
 def test_multi_gpu_flag_trains_on_one_card_and_is_refused_with_two(tmp_path, fakes,

@@ -8,10 +8,10 @@ component graph, names, error codes, artifact paths and metrics:
   mirror-pre-spz -> spz-export -> [estimate-scale -> floorplan -> object-layer]
   -> artifact-export
 
-SfM, undistortion and training run on the job's device (CUDA unless the
-caller asks for the CPU). A component the port does not have yet makes
-run_job raise NotImplementedError before any stage runs, naming its ROADMAP
-item.
+The matting nets, the 360-degree expansion, SfM, undistortion and training
+run on the job's device (CUDA unless the caller asks for the CPU). A
+component the port does not have yet makes run_job raise
+NotImplementedError before any stage runs, naming its ROADMAP item.
 
 Quality gates mirror main.py:2031-2087 (frames >= 10 & points >= 50 for
 splatfacto, >= 3/>= 3 otherwise); the delivery orientation dance mirrors
@@ -175,8 +175,6 @@ class _NotPorted:
         raise NotImplementedError(f"not ported yet: {self.item}")
 
 
-_MATTING = _NotPorted("ROADMAP.md queue 1 item 11 (matting)")
-_SPHERICAL = _NotPorted("ROADMAP.md queue 1 item 12 (spherical)")
 _POSE_PRIORS = _NotPorted("ROADMAP.md queue 1 item 10.4 (sfm/pose_priors.py)")
 _GLOBAL_SFM = _NotPorted("ROADMAP.md queue 1 item 10.5 (sfm/global_mapper.py)")
 _EXTRAS = _NotPorted("ROADMAP.md queue 1 item 13 (export extras)")
@@ -185,22 +183,20 @@ _EXTRAS = _NotPorted("ROADMAP.md queue 1 item 13 (export extras)")
 def _register_components(pipe: Pipeline, cfg: JobConfig):
     pipe.create_component("Resolve-Input", ComponentType.LOADER, _resolve_input, 705)
     pipe.create_component("Media-To-Images", ComponentType.LOADER, _media_to_images, 730)
-    blur_fn = (_filter_blurry if cfg.image_processing.blur_mask_method in ("full", "center")
-               else _MATTING)  # the saliency-masked scoring needs the matting stack
     pipe.create_component(
-        "Filter-Blurry-Images", ComponentType.FILTER, blur_fn, 795,
+        "Filter-Blurry-Images", ComponentType.FILTER, _filter_blurry, 795,
         enabled=cfg.image_processing.filter_blurry_images,
     )
     pipe.create_component(
-        "Remove-Background", ComponentType.FILTER, _MATTING, 740,
+        "Remove-Background", ComponentType.FILTER, _remove_background, 740,
         enabled=cfg.segmentation.remove_background,
     )
     pipe.create_component(
-        "Remove-Human-Subject", ComponentType.FILTER, _MATTING, 745,
+        "Remove-Human-Subject", ComponentType.FILTER, _remove_human_subject, 745,
         enabled=cfg.segmentation.remove_human_subject,
     )
     pipe.create_component(
-        "Spherical-To-Perspective", ComponentType.TRANSFORM, _SPHERICAL, 735,
+        "Spherical-To-Perspective", ComponentType.TRANSFORM, _spherical, 735,
         enabled=cfg.spherical_camera.enable,
     )
     use_priors = (cfg.sfm.pose_priors.use_pose_prior_transform_json
@@ -348,12 +344,102 @@ def _filter_blurry(ctx: PipelineContext):
     target = min(cfg.video_processing.max_num_images, len(images))
     selected, idx = filter_blurry_images(
         images, target_count=target,
-        mask_method=cfg.image_processing.blur_mask_method,
+        mask_method=cfg.image_processing.blur_mask_method, device=ctx["device"],
     )
     ctx["images"] = selected
     ctx["frame_indices"] = idx
     if ctx.get("image_names") is not None:
         ctx["image_names"] = [ctx["image_names"][i] for i in idx]
+
+
+def _remove_background(ctx: PipelineContext):
+    from tpu_splat_torch.matting.remove import remove_background_batch
+
+    cfg: JobConfig = ctx["cfg"]
+    images, masks = remove_background_batch(
+        ctx.require("images"),
+        model=cfg.segmentation.background_removal_model,
+        threshold=cfg.segmentation.mask_threshold,
+        device=ctx["device"],
+    )
+    ctx["images"] = images
+    ctx["masks"] = masks
+
+
+def _find_mask_images(ctx: PipelineContext):
+    """Locate externally supplied mask images for the capture: a `masks/`
+    sibling directory whose files pair with the frames by sorted order (the
+    reference pairs os.listdir orderings, remove_object_using_mask.py:147-166).
+    Returns (N, H, W) float masks aligned to ctx images, or None."""
+    import cv2
+
+    raw_dir = ctx.get("raw_dir")
+    if not raw_dir:
+        return None
+    mask_dir = os.path.join(raw_dir, "masks")
+    if not os.path.isdir(mask_dir):
+        mask_dir = os.path.join(os.path.dirname(raw_dir.rstrip("/")), "masks")
+        if not os.path.isdir(mask_dir):
+            return None
+    files = sorted(
+        f for f in os.listdir(mask_dir)
+        if os.path.splitext(f)[1].lower() in (".png", ".jpg", ".jpeg", ".bmp")
+    )
+    if not files:
+        return None
+    images = ctx.require("images")
+    idx = ctx.get("frame_indices")
+    if len(files) != len(images) and idx is not None and len(files) > max(idx):
+        files = [files[i] for i in idx]  # masks were per raw frame
+    if len(files) != len(images):
+        raise PipelineError(
+            740, f"mask count {len(files)} != frame count {len(images)}"
+        )
+    h, w = images.shape[1:3]
+    masks = np.stack([
+        cv2.resize(
+            cv2.imread(os.path.join(mask_dir, f), cv2.IMREAD_GRAYSCALE),
+            (w, h), interpolation=cv2.INTER_LINEAR,
+        ).astype(np.float32)
+        for f in files
+    ])
+    return masks
+
+
+def _remove_human_subject(ctx: PipelineContext):
+    """Remove a human subject from every frame (remove_object_using_mask.py:28-169
+    + the SAM2 human-detection seeding, main.py:912-941). When the capture
+    ships mask images (a masks/ directory), they are applied through the
+    reference's invert -> alpha -> Otsu-binarize contract; otherwise the person
+    is detected with the person-segmentation matting stack. Either way the
+    training masks keep the COMPLEMENT — the scene minus the subject."""
+    from tpu_splat_torch.matting.remove import apply_mask_images, remove_background_batch
+
+    cfg: JobConfig = ctx["cfg"]
+    images = ctx.require("images")
+    mask_imgs = _find_mask_images(ctx)
+    if mask_imgs is not None:
+        pipe_logger(ctx)(f"applying {len(mask_imgs)} external mask images")
+        _, keep = apply_mask_images(images, mask_imgs)
+    else:
+        _, person_masks = remove_background_batch(
+            images, model="u2net_human_seg",
+            threshold=cfg.segmentation.mask_threshold, device=ctx["device"],
+        )
+        keep = (1.0 - person_masks).astype(np.float32)
+    if ctx.get("masks") is not None:
+        keep = keep * ctx["masks"]
+    ctx["images"] = (images * keep[..., None]).astype(np.float32)
+    ctx["masks"] = keep
+
+
+def _spherical(ctx: PipelineContext):
+    from tpu_splat_torch.spherical.pipeline import expand_equirectangular_captures
+
+    cfg: JobConfig = ctx["cfg"]
+    ctx["images"] = expand_equirectangular_captures(
+        ctx.require("images"), cfg.spherical_camera, device=ctx["device"]
+    )
 
 
 def _sfm(ctx: PipelineContext):

@@ -190,3 +190,188 @@ def centre_rmse(scene, viewmats: np.ndarray) -> float:
     s, R, t = umeyama_alignment(torch.from_numpy(rec), torch.from_numpy(gt))
     aligned = float(s) * rec @ R.numpy().T + t.numpy()
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
+
+
+def upright_viewmat(eye: np.ndarray, target=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """World-to-camera (4, 4) f32 for a camera at `eye` looking at `target`,
+    with the image's down along world +y (no roll)."""
+    z = np.asarray(target, np.float64) - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.stack([x, np.cross(z, x), z])
+    m[:3, 3] = -m[:3, :3] @ eye
+    return m
+
+
+def _blobs(means: np.ndarray, colors: np.ndarray, rng: np.random.Generator,
+           sizes: tuple) -> list:
+    """Round opaque gaussians as render_view's parameter list, with sizes
+    log-uniform in `sizes` (metres)."""
+    n = len(means)
+    log_s = rng.uniform(np.log(sizes[0]), np.log(sizes[1]), (n, 1))
+    return [means.astype(np.float32), np.repeat(log_s, 3, 1).astype(np.float32),
+            np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1)),
+            np.full((n,), 4.0, np.float32), ((colors - 0.5) / 0.2820948).astype(np.float32),
+            np.zeros((n, 0, 3), np.float32)]
+
+
+SUBJECT_BACKGROUND = 0.27  # subject_scene's sky: the ground's grey, no horizon
+
+
+def subject_scene(rng: np.random.Generator, n_rock: int = 20_000,
+                  n_ground: int = 30_000) -> tuple:
+    """A capture subject for background removal: textured_scene's bumpy
+    rock (blobs of 1-6 cm, uniform colours) on a dim blue-grey ground (+y
+    down). Render it with a SUBJECT_BACKGROUND sky, so the only salient edge
+    is the rock's. Returns (parameters, n_rock): the rock is the first n_rock
+    gaussians."""
+    dirs = rng.normal(size=(n_rock, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = (1.0 + 0.25 * np.sin(5 * dirs[:, 0]) * np.cos(4 * dirs[:, 1])
+              + 0.05 * rng.normal(size=n_rock))
+    ground = np.stack([rng.uniform(-4, 4, n_ground),
+                       np.full(n_ground, 1.3) + rng.normal(0, 0.02, n_ground),
+                       rng.uniform(-4, 4, n_ground)], axis=1)
+    rock_rgb = rng.uniform(0, 1, (n_rock, 3))
+    ground_rgb = (0.25 + rng.uniform(-0.08, 0.08, (n_ground, 1))
+                  + np.array([[0.0, 0.03, 0.1]]))
+    return _blobs(np.concatenate([dirs * radius[:, None], ground]),
+                  np.concatenate([rock_rgb, ground_rgb]), rng, (0.01, 0.06)), n_rock
+
+
+def arc_viewmats(n_views: int, radius: float = 3.2, height: float = -0.8,
+                 arc: float = 2 * np.pi / 3) -> np.ndarray:
+    """(n_views, 4, 4) upright cameras on a horizontal arc of `arc` radians
+    around the origin, at y = height (above the ground when negative),
+    looking at the origin."""
+    return np.stack([upright_viewmat(np.array([radius * np.sin(a), height,
+                                               -radius * np.cos(a)]))
+                     for a in np.linspace(-arc / 2, arc / 2, n_views)])
+
+
+def room_scene(rng: np.random.Generator, half: float = 4.0, n_wall: int = 80_000,
+               n_flat: int = 20_000, sizes: tuple = (0.04, 0.2)) -> list:
+    """A square room of textured blobs around the origin, for 360-degree
+    captures: four walls at x, z = +-half from the ceiling (y = -2.5) to the
+    floor (y = 1.3), and the floor and ceiling; uniform random colours.
+    render_view's parameter list."""
+    side = rng.integers(0, 4, n_wall)
+    along = rng.uniform(-half, half, n_wall)
+    walls = np.stack([np.where(side < 2, np.where(side == 0, -half, half), along),
+                      rng.uniform(-2.5, 1.3, n_wall),
+                      np.where(side < 2, along, np.where(side == 2, -half, half))], axis=1)
+    walls += rng.normal(0, 0.02, walls.shape)
+    flats = np.stack([rng.uniform(-half, half, 2 * n_flat),
+                      np.repeat([1.3, -2.5], n_flat),
+                      rng.uniform(-half, half, 2 * n_flat)], axis=1)
+    means = np.concatenate([walls, flats])
+    return _blobs(means, rng.uniform(0, 1, (len(means), 3)), rng, sizes)
+
+
+def render_erp(scene, eyes: np.ndarray, height: int, face_size: int, background: float = 0.5,
+               max_per_tile: int = 1024, device="cpu") -> np.ndarray:
+    """(N, height, 2 * height, 3) f32 equirectangular frames of `scene` seen
+    from each eye (no rotation: the frame's centre looks along +z): the six
+    90-degree cube faces rendered by the port, then cubemap_to_erp."""
+    import torch
+
+    from tpu_splat_torch.gs.render import render_view
+    from tpu_splat_torch.spherical.projections import _FACE_ROTS, FACE_NAMES, cubemap_to_erp
+
+    f = c = (face_size - 1) / 2.0  # cubemap_to_erp's face camera; pixel i is at i
+    out = []
+    with torch.no_grad():
+        params = [torch.from_numpy(a).to(device) for a in scene]
+        bg = torch.full((3,), background, device=device)
+        for eye in eyes:
+            faces = []
+            for name in FACE_NAMES:
+                vm = np.eye(4, dtype=np.float32)
+                vm[:3, :3] = _FACE_ROTS[name].T  # world -> face-local
+                vm[:3, 3] = -_FACE_ROTS[name].T @ eye
+                faces.append(render_view(*params, torch.from_numpy(vm).to(device), f, f, c, c,
+                                         face_size, face_size, sh_degree=0, background=bg,
+                                         max_per_tile=max_per_tile, device=device).color)
+            out.append(cubemap_to_erp(torch.stack(faces), height, 2 * height).cpu().numpy())
+    return np.stack(out)
+
+
+def composite_scene(rng=None, n=6, h=120, w=160):
+    """tests/test_matting_quality.py's matting capture: a bright textured
+    ellipse sliding over a dark, low-texture background. Returns (images
+    (N,H,W,3), gt_masks (N,H,W))."""
+    rng = rng or np.random.default_rng(3)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    images = np.zeros((n, h, w, 3), np.float32)
+    gt = np.zeros((n, h, w), np.float32)
+    bg = 0.18 + 0.04 * np.sin(xx / 23.0) * np.cos(yy / 17.0)
+    bg = np.stack([bg * 0.9, bg, bg * 1.1], axis=-1)
+    for i in range(n):
+        cx = w * (0.35 + 0.3 * i / max(n - 1, 1))
+        cy = h * 0.5 + 6 * np.sin(i)
+        d = ((xx - cx) / (0.22 * w)) ** 2 + ((yy - cy) / (0.3 * h)) ** 2
+        m = (d < 1.0).astype(np.float32)
+        tex = 0.75 + 0.2 * np.sin(xx / 5.0 + i) * np.sin(yy / 7.0)
+        fg = np.stack([tex, 0.55 * tex, 0.35 * tex], axis=-1)
+        img = bg * (1 - m[..., None]) + fg * m[..., None]
+        img += 0.01 * rng.standard_normal(img.shape)
+        images[i] = np.clip(img, 0, 1)
+        gt[i] = m
+    return images, gt
+
+
+def mask_iou(pred: np.ndarray, gt: np.ndarray) -> float:
+    """IoU of two masks thresholded at 0.5."""
+    p = pred > 0.5
+    g = gt > 0.5
+    return float(np.logical_and(p, g).sum()) / max(float(np.logical_or(p, g).sum()), 1.0)
+
+
+def seeded_u2net_state_dict(seed: int = 0, device="cpu") -> dict:
+    """A full U2Net state dict from a seed, with the standard PyTorch keys: He-
+    normal convolutions, each BatchNorm's running statistics set to its
+    batch statistics on one seeded batch of two smooth 320x320 images, and
+    the side and output
+    convolutions scaled to unit-deviation logits on that batch. Every layer's
+    output is then normalised, so the fused saliency spreads over [0, 1]
+    (random weights alone saturate it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_splat_torch.matting.u2net import _MEAN, _STD, U2Net
+
+    gen = torch.Generator().manual_seed(seed)
+    net = U2Net("full")
+    # smooth seeded images (8x8 colour fields, upsampled), preprocessed as
+    # u2net_apply does: the statistics the net meets on a photograph
+    x = F.interpolate(torch.rand((2, 3, 8, 8), generator=gen), size=(320, 320),
+                      mode="bilinear", align_corners=False)
+    x = (x / x.amax(dim=(1, 2, 3), keepdim=True) - torch.tensor(_MEAN)[:, None, None]) \
+        / torch.tensor(_STD)[:, None, None]
+    x = x.to(device)
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
+                                 * (2.0 / fan_in) ** 0.5)
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=gen))
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                mod.momentum = None  # a cumulative average: one batch sets the statistics
+        net.to(device).train()
+        net(x)
+        net.eval()
+        heads = [getattr(net, f"side{i}") for i in range(1, 7)] + [net.outconv]
+        for group in (heads[:6], heads[6:]):  # the sides first: they feed outconv
+            spread = {}
+            hooks = [m.register_forward_hook(
+                lambda m, _, out: spread.__setitem__(m, float(out.std()))) for m in group]
+            net(x)
+            for h in hooks:
+                h.remove()
+            for m in group:
+                m.weight /= spread[m]
+                m.bias /= spread[m]
+    return {k: v.cpu() for k, v in net.state_dict().items()}
