@@ -73,17 +73,51 @@ the JAX package. Phases, each of which raises on failure:
    3.5-5 minutes on the H100's host), run by the CLI. Raises unless it
    completes, times Spherical-To-Perspective, hands SfM as many images as
    the expansion makes, and writes a .spz that reads back with more than
-   100 gaussians. Prints erp_to_perspective's ms a view.
+   100 gaussians. Prints erp_to_perspective's ms a view;
+10. a pose-prior job: phase 6's frames as PNGs in a .zip beside a
+   transforms-in.json of the true poses (ARKit world-to-camera matrices) and
+   intrinsics, run by the CLI with the reference's default job but for pose
+   priors, a tripod measurement (1.0 m), the object layer, the nerfacto
+   model (so the mesh is exported) and maxSteps 300. Raises unless it
+   completes with 16 of 16 frames registered, the exported poses are
+   normalize_poses of the priors (camera 0, BA's gauge, within 1e-5; the
+   others, which BA refines, within 1% of the walk), every default
+   artifact reads back as in phase 7, measurement.json is a valid scale,
+   floorplan.json, objects.geojson, poisson_mesh.ply, textured/mesh.obj and
+   mesh.glb read back with more than 0 faces and every vertex inside the
+   density grid's cube (the splat's 1-99% bounds plus the padding, on its
+   largest side). Then on the job's trained splat the plane RANSAC and the
+   mesh on the card against the port on the CPU: the same winning
+   hypothesis and inliers, metersPerModelUnit within 1e-9 relative, the
+   density grid within 1e-12 relative, equal face counts, and two card
+   plane fits and extract_mesh runs bit-identical. The CLI's `convert`
+   (the repo's C++ codec, compiled at first use) turns the job's .ply into
+   a .spz whose payload must equal core/spz's. Prints the component
+   seconds, the plane found and the scale against the true one, the mesh's
+   counts and the grid, marching tetrahedra and RANSAC times;
+11. a global-SfM job: phase 7's capture with softwareName glomap and
+   maxSteps 300, run by the CLI. The yardstick is the reference's own
+   outcome on the same frames, recorded on the CPU by
+   scripts/compare_torch_global_sfm.py --record (GLOBAL_SFM_REFERENCE).
+   Raises unless the capture is the recorded one, the job completes with
+   at least the reference's registered count less 1, every pose, point and
+   gaussian is finite, the camera-centre RMSE is at most max(2 x the
+   reference's, 1% of the walk's span), and the job's own rotation_averaging
+   and global_positioning inputs, run twice more on the card, agree bit for
+   bit. Prints the relative-pose count, the averaging, positioning and BA
+   seconds and the component seconds.
 
-The launch counters are zeroed just before each of the five training paths
-(phases 4, 5, 7, 8 and 9) and read just after it; both kernels must have
-launched in each. SfM and the matting nets hold no hand-written kernel.
+The launch counters are zeroed just before each of the seven training paths
+(phases 4, 5, 7, 8, 9, 10 and 11) and read just after it; both kernels must
+have launched in each. SfM, the matting nets and the extras hold no
+hand-written kernel.
 The line before the last is the {"kernels": [...]} record, with phase 4's
 launches; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -95,7 +129,8 @@ import time
 import numpy as np
 
 from tpu_splat_torch.testing import (RAGGED_COUNTS, SUBJECT_BACKGROUND, arc_viewmats,
-                                     build_packed, centre_rmse, composite_scene, mask_iou,
+                                     build_packed, camera_centre_rmse, centre_rmse,
+                                     composite_scene, mask_iou,
                                      render_capture, render_erp, ring_viewmats, room_scene,
                                      seeded_u2net_state_dict, subject_scene, synthetic_capture,
                                      textured_scene, walk_viewmats)
@@ -116,8 +151,30 @@ FWD_OPS_PER_PAIR = 30
 BWD_OPS_PER_PAIR = 66
 FWD_BAR, BWD_BAR = 2e-5, 5e-5
 WALK_SPAN = 5.0  # testing.walk_viewmats' default: phase 6's capture
+SFM_FOCAL = 1100.0  # phase 6's true focal
 JOB_STEPS = 600  # phase 7: past the first refine pass, at step 500
-OPTION_STEPS = 300  # phases 8 and 9: the jobs' maxSteps, lowered from the preset's
+OPTION_STEPS = 300  # phases 8-11: the jobs' maxSteps, lowered from the preset's
+# phase 10: the walk's eyes sit 1.0 above testing.textured_scene's ground (y 0.3
+# against 1.3, +y down): with world units taken as metres, a tripod of 1.0 m
+TRIPOD_HEIGHT_M = 1.0
+# phase 10: exported poses against the normalised priors. Camera 0 is BA's
+# fixed gauge and comes back as imported; sfm_with_pose_priors' BA refines
+# the others around their priors (as the reference's), by up to 0.33% of the
+# walk and 3.4e-3 in rotation on this capture (H100 80GB HBM3, 700 W), so
+# they are held to 1% of the walk and 0.01 in each rotation entry.
+PRIOR_POSE_TOL = 1e-5
+PRIOR_POSE_SHIFT = 0.01
+# phase 11: the reference's global SfM (softwareName glomap) on phase 7's
+# capture, and the capture's mean and its values at CAPTURE_PIXELS (frame, y,
+# x, channel): `JAX_PLATFORMS=cpu python scripts/compare_torch_global_sfm.py
+# --record` (rmse in world units)
+CAPTURE_PIXELS = [(0, 100, 200, 0), (3, 400, 640, 1), (7, 700, 1200, 2), (9, 360, 10, 0),
+                  (12, 5, 900, 1), (15, 550, 333, 2)]
+GLOBAL_SFM_REFERENCE = {
+    "registered": 16, "points": 578, "rmse": 0.8548157811164856, "final_rms_px": 1.29,
+    "capture_mean": 0.5228276252746582,
+    "capture_values": [0.8705882430076599, 0.4117647111415863, 0.4117647111415863,
+                       0.572549045085907, 0.45098039507865906, 0.364705890417099]}
 
 
 def log(msg: str) -> None:
@@ -557,7 +614,7 @@ def sfm_phase(dev, rng) -> np.ndarray:
     from tpu_splat_torch.sfm.features import FeatureConfig
     from tpu_splat_torch.sfm.mapper import MapperConfig, run_sfm
 
-    n_views, width, height, focal = 16, 1280, 720, 1100.0
+    n_views, width, height, focal = 16, 1280, 720, SFM_FOCAL
     t0 = time.time()
     vms, images = sfm_capture(n_views, width, height, focal, dev)
     log(f"[sfm] capture: {n_views} frames {width}x{height}, true fx {focal}, rendered in "
@@ -661,12 +718,17 @@ def run_cli_job(job_path: str, path: str, log_name: str):
     return res, lines, launches, job_s
 
 
-def check_job_artifacts(root: str, out: str, uuid: str, res: dict, n_frames: int):
-    """Every default artifact of a completed job is present and reads back:
-    the database holds every frame, the text and binary models hold the
-    registered ones, the .ply and .spz the trained gaussian count, and every
-    pose, point and gaussian is finite. Returns (database, sparse point
-    count)."""
+DEFAULT_ARTIFACTS = ("colmap_db", "transforms_json", "ply", "spz")
+
+
+def check_job_artifacts(root: str, out: str, uuid: str, res: dict, n_frames: int,
+                        artifacts: tuple = DEFAULT_ARTIFACTS):
+    """Every artifact of a completed job is present and reads back: the
+    database (where the job makes one: incremental SfM) holds every frame,
+    the text and binary models hold the registered ones, the .ply and .spz
+    the trained gaussian count, and every pose, point and gaussian is finite.
+    `artifacts` names what the job delivers. Returns (database or None,
+    sparse point count)."""
     import shutil
 
     from tpu_splat_torch.core.ply import load_ply
@@ -677,22 +739,25 @@ def check_job_artifacts(root: str, out: str, uuid: str, res: dict, n_frames: int
     metrics = res["metrics"]
     n_reg = int(metrics["num_registered"])
     colmap, sparse = os.path.join(out, "colmap"), os.path.join(out, "colmap", "sparse", "0")
-    wanted = [os.path.join(colmap, "database.db"), os.path.join(colmap, "transforms.json"),
-              os.path.join(out, "exports", "splat.ply"), os.path.join(out, "exports", "splat.spz"),
-              os.path.join(out, "jobs", f"{uuid}.json")]
+    wanted = [os.path.join(colmap, "transforms.json"), os.path.join(out, "exports", "splat.ply"),
+              os.path.join(out, "exports", "splat.spz"), os.path.join(out, "jobs", f"{uuid}.json")]
+    if "colmap_db" in artifacts:
+        wanted.append(os.path.join(colmap, "database.db"))
     wanted += [os.path.join(sparse, f"{f}.{e}") for f in ("cameras", "images", "points3D")
                for e in ("txt", "bin")]
     missing = [p for p in wanted if not os.path.isfile(p)]
     missing += [p for p in res["artifacts"].values() if not os.path.isfile(p)]
-    if missing or set(res["artifacts"]) != {"colmap_db", "transforms_json", "ply", "spz"}:
+    if missing or set(res["artifacts"]) != set(artifacts):
         raise AssertionError(f"artifacts missing: {missing}; delivered {res['artifacts']}")
     with open(os.path.join(out, "jobs", f"{uuid}.json")) as f:
         if json.load(f)["status"] != "Complete":
             raise AssertionError("the job store does not say Complete")
 
-    db = read_database(os.path.join(colmap, "database.db"))
-    if len(db["images"]) != n_frames or len(db["keypoints"]) != n_frames:
-        raise AssertionError(f"the database holds {len(db['images'])} images")
+    db = None
+    if "colmap_db" in artifacts:
+        db = read_database(os.path.join(colmap, "database.db"))
+        if len(db["images"]) != n_frames or len(db["keypoints"]) != n_frames:
+            raise AssertionError(f"the database holds {len(db['images'])} images")
     models = {}
     for kind in ("txt", "bin"):
         d = os.path.join(root, f"model_{kind}")
@@ -1032,6 +1097,346 @@ def spherical_phase(dev, steps: int) -> None:
     log(f"[spherical] CLI run {job_s:.1f} s (launches {launches})")
     log(f"[spherical] {card_line()}")
 
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Wrap module.<name> for the block: each call's (args, kwargs) is
+    appended to `calls`, and the call goes through unchanged."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def model_poses(out: str) -> dict:
+    """frame index -> world-to-camera (4, 4) f64 of a job's text model
+    (colmap/sparse/0; images named frame_<index>.png)."""
+    from tpu_splat_torch.sfm.colmap_io import qvec_to_rotmat, read_colmap_model
+
+    _, images, _, _ = read_colmap_model(os.path.join(out, "colmap", "sparse", "0"))
+    poses = {}
+    for name, rec in images.items():
+        w2c = np.eye(4)
+        w2c[:3, :3] = qvec_to_rotmat(np.asarray(rec["qvec"], np.float64))
+        w2c[:3, 3] = rec["tvec"]
+        poses[int(re.search(r"(\d+)\.png$", name)[1])] = w2c
+    return poses
+
+
+def model_rmse(poses: dict, viewmats: np.ndarray) -> float:
+    """Camera-centre RMSE, in world units, of a job's registered poses
+    (model_poses) against the true world-to-camera matrices, after a
+    similarity alignment."""
+    idx = sorted(poses)
+    return camera_centre_rmse(np.linalg.inv(np.stack([poses[i] for i in idx])),
+                              viewmats[idx])
+
+
+def read_mesh_artifacts(exports: str) -> tuple:
+    """The mesh deliverables read back: (ply vertices, ply face count, obj
+    vertex and face counts, glb vertex and index counts)."""
+    import struct
+
+    with open(os.path.join(exports, "poisson_mesh.ply")) as f:
+        text = f.read()
+    head, body = text.split("end_header\n")
+    n_v = int(re.search(r"element vertex (\d+)", head)[1])
+    n_f = int(re.search(r"element face (\d+)", head)[1])
+    rows = body.splitlines()
+    verts = np.array([[float(x) for x in r.split()[:3]] for r in rows[:n_v]]).reshape(-1, 3)
+    if len(rows) != n_v + n_f or any(not r.startswith("3 ") for r in rows[n_v:]):
+        raise AssertionError("poisson_mesh.ply does not read back")
+    with open(os.path.join(exports, "textured", "mesh.obj")) as f:
+        obj = f.read().splitlines()
+    obj_v = sum(r.startswith("v ") for r in obj)
+    obj_f = sum(r.startswith("f ") for r in obj)
+    with open(os.path.join(exports, "textured", "mesh.glb"), "rb") as f:
+        glb = f.read()
+    magic, version, total = struct.unpack_from("<III", glb, 0)
+    js_len, js_type = struct.unpack_from("<II", glb, 12)
+    gltf = json.loads(glb[20:20 + js_len])
+    if not (magic == 0x46546C67 and version == 2 and total == len(glb)
+            and js_type == 0x4E4F534A):
+        raise AssertionError("textured/mesh.glb is not a glTF 2.0 binary")
+    acc = gltf["accessors"]
+    return verts, n_f, (obj_v, obj_f), (acc[0]["count"], acc[2]["count"])
+
+
+def spz_rounding_ties(native: bytes, cloud) -> int:
+    """Hold the native codec's packed .spz payload to core/spz's on the same
+    cloud, byte for byte, but for 8-bit values one level apart where the
+    exact value sits at a rounding tie (within 1e-3 of k + 0.5): native/spz
+    quantizes alphas, colours, scales and rotations in f32 and core/spz in
+    f64, so a rotation component of +-1e-8 (a rotated identity quaternion)
+    rounds 127.5 up in one and 127.49999 down in the other. Positions and
+    SH are scaled by powers of two, exact in both, and must be equal.
+    Returns the count of tie bytes; raises on any other difference."""
+    from tpu_splat_torch.core.spz import COLOR_SCALE, pack_gaussians
+
+    ref = pack_gaussians(cloud)
+    if len(native) != len(ref):
+        raise AssertionError(f"convert's .spz payload has {len(native)} bytes, core/spz's "
+                             f"{len(ref)}")
+    a, b = np.frombuffer(native, np.uint8), np.frombuffer(ref, np.uint8)
+    diff = np.nonzero(a != b)[0]
+    g = cloud.to_numpy()
+    q = g.quats.astype(np.float64)
+    norm = np.linalg.norm(q, axis=1, keepdims=True)
+    q = q / np.where(norm == 0, 1.0, norm)
+    exact = np.concatenate([  # core/spz's values before rounding, in payload order
+        255.0 / (1.0 + np.exp(-g.opacities.astype(np.float64))),
+        (g.sh0.astype(np.float64) * (COLOR_SCALE * 255.0) + 127.5).reshape(-1),
+        ((g.scales.astype(np.float64) + 10.0) * 16.0).reshape(-1),
+        (q[:, 1:4] * np.where(q[:, :1] < 0, -1.0, 1.0) * 127.5 + 127.5).reshape(-1)])
+    k = diff - (16 + 9 * cloud.num_points)  # offsets in the 8-bit sections
+    ok = (k >= 0) & (k < len(exact))
+    x = exact[k[ok]]
+    ok[ok] = ((np.abs(x - np.floor(x) - 0.5) < 1e-3)
+              & (np.abs(a[diff[ok]].astype(int) - b[diff[ok]]) == 1))
+    if not ok.all():
+        raise AssertionError(f"convert's .spz payload differs from core/spz's at bytes "
+                             f"{diff[~ok][:10].tolist()} beyond rounding ties")
+    return len(diff)
+
+
+def pose_prior_phase(images: np.ndarray, viewmats: np.ndarray, focal: float, dev,
+                     steps: int) -> None:
+    """Phase 10 (see the module docstring): a pose-prior job with every
+    extra, then the plane fit and the mesh on the card against the CPU."""
+    import gzip
+    import shutil
+    import zipfile
+
+    import torch
+
+    from tpu_splat_torch.core.ply import load_ply
+    from tpu_splat_torch.export import measurement, mesh
+    from tpu_splat_torch.sfm.pose_priors import convert_pose, normalize_poses
+
+    root = os.path.join(OUT_DIR, "pose_priors")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n, (height, width) = len(images), images.shape[1:3]
+    zip_path = os.path.join(root, "capture.zip")
+    zip_frames(images, zip_path)
+    T = np.diag([1.0, -1.0, -1.0, 1.0])  # ARKit's basis: world-to-camera = T w2c T
+    frames = [{"file_path": f"images/frame_{i:04d}.png",
+               "transform_matrix": (T @ viewmats[i].astype(np.float64) @ T).tolist()}
+              for i in range(n)]
+    with zipfile.ZipFile(zip_path, "a") as zf:
+        zf.writestr("capture/transforms-in.json", json.dumps(
+            {"fl_x": focal, "fl_y": focal, "cx": width / 2, "cy": height / 2, "w": width,
+             "h": height, "frames": frames}))
+    c2w_true = np.stack([convert_pose(np.asarray(f["transform_matrix"]), "arkit", True)
+                         for f in frames])
+    priors, _, norm_scale = normalize_poses(c2w_true)
+    uuid, out = "chip-smoke-pose-priors", os.path.join(root, "out")
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:  # the reference's defaults, but for these
+        json.dump({"uuid": uuid, "inputPath": zip_path, "outputPath": out,
+                   "sfm": {"posePriors": {"usePosePriorTransformJson": {
+                       "enable": True, "sourceCoordinateName": "arkit",
+                       "poseIsWorldToCam": True}}},
+                   "measurement": {"referenceType": "tripod", "tripodHeightM": TRIPOD_HEIGHT_M},
+                   "semantic": {"enableObjectLayer": True},
+                   "training": {"model": "nerfacto", "maxSteps": steps}}, f)
+    log(f"[priors] {n} frames {width}x{height} with an ARKit transforms-in.json of the true "
+        f"world-to-camera poses and intrinsics; job: pose priors, tripod {TRIPOD_HEIGHT_M} m, "
+        f"object layer, nerfacto (mesh export), maxSteps {steps}")
+
+    scale_calls, mesh_calls = [], []
+    with recording(measurement, "estimate_scale_from_tripod", scale_calls), \
+            recording(mesh, "export_mesh_artifacts", mesh_calls):
+        res, lines, launches, job_s = run_cli_job(job_path, "pose-prior job",
+                                                  "pose_priors_log.txt")
+    n_reg = int(res["metrics"]["num_registered"])
+    if n_reg != n:
+        raise AssertionError(f"the pose-prior job registered {n_reg} of {n} frames")
+    exports = os.path.join(out, "exports")
+    with open(os.path.join(exports, "floorplan.json")) as f:
+        floor = json.load(f)
+    with open(os.path.join(exports, "objects.geojson")) as f:
+        objects = json.load(f)["features"]
+    with open(os.path.join(exports, "measurement.json")) as f:
+        meas = json.load(f)
+    if not (meas["valid"] and math.isfinite(meas["metersPerModelUnit"])
+            and meas["metersPerModelUnit"] > 0):
+        raise AssertionError(f"measurement.json is not a valid scale: {meas}")
+    extras = ("mesh_ply", "mesh_obj", "mesh_glb", "measurement", "floorplan_meta",
+              "objects_geojson", "objects_svg")
+    if floor["valid"]:  # a polygon was found
+        extras += ("floorplan_svg", "floorplan_png", "floorplan_geojson")
+    _, n_pts = check_job_artifacts(root, out, uuid, res, n,
+                                   ("transforms_json", "ply", "spz") + extras)
+    poses = model_poses(out)
+    w2c_priors = np.linalg.inv(priors)
+    shift = {i: (np.abs(poses[i][:3, :3] - w2c_priors[i][:3, :3]).max(),
+                 np.abs(poses[i][:3, 3] - w2c_priors[i][:3, 3]).max()) for i in poses}
+    dev_R, dev_t = (max(d[k] for i, d in shift.items() if i) for k in (0, 1))
+    span = WALK_SPAN / norm_scale  # the walk in model units
+    log(f"[priors] exported poses against normalize_poses of the priors: camera 0 (BA's "
+        f"gauge) {max(shift[0]):.3e}; the others, refined by BA: rotation max abs {dev_R:.3e}, "
+        f"translation max abs {dev_t:.3e} ({dev_t / span:.5f} of the walk's {span:.3f})")
+    if max(shift[0]) > PRIOR_POSE_TOL or dev_R > PRIOR_POSE_SHIFT \
+            or dev_t > PRIOR_POSE_SHIFT * span:
+        raise AssertionError(f"the exported poses are off the priors: {shift}")
+
+    cloud = mesh_calls[0][0][0]
+    means = np.asarray(cloud.means, np.float64)
+    verts, n_faces, obj_counts, glb_counts = read_mesh_artifacts(exports)
+    lo, hi = np.percentile(means, 1, axis=0), np.percentile(means, 99, axis=0)
+    pad = 0.05 * float(np.max(hi - lo))
+    origin, side = lo - pad, float(np.max(hi - lo)) + 2 * pad  # the grid's cube
+    inside = np.all((verts >= origin - 1e-4) & (verts <= origin + side + 1e-4), axis=1)
+    if not (n_faces > 0 and np.isfinite(verts).all() and inside.all()
+            and obj_counts == (len(verts), n_faces) and glb_counts == (len(verts), 3 * n_faces)):
+        raise AssertionError(f"the mesh: {len(verts)} vertices ({int(inside.sum())} inside the "
+                             f"grid), {n_faces} faces, obj {obj_counts}, glb {glb_counts}")
+    in_box = float(np.mean(np.all((verts >= lo - pad) & (verts <= hi + pad), axis=1)))
+
+    # the card against the CPU on the job's trained splat means
+    (pts, c2ws), kw = scale_calls[0]
+    height_m = kw["tripod_height_m"]
+    pts_d = torch.as_tensor(np.asarray(pts, np.float64), device=dev)
+    pts_c = pts_d.cpu()
+    centers = np.asarray(c2ws, np.float64)[:, :3, 3]
+    fits = [measurement.best_plane(p, np.random.default_rng(0), camera_centers=centers)
+            for p in (pts_d, pts_c, pts_d)]
+    card_scale = measurement.estimate_scale_from_tripod(pts, c2ws, height_m, device=dev)
+    cpu_scale = measurement.estimate_scale_from_tripod(pts, c2ws, height_m, device="cpu")
+    rel = abs(card_scale["metersPerModelUnit"] / cpu_scale["metersPerModelUnit"] - 1)
+    same_fit = (fits[0][0] == fits[1][0] and torch.equal(fits[0][3].cpu(), fits[1][3])
+                and torch.equal(fits[0][1], fits[2][1]) and fits[0][0] == fits[2][0])
+    grid_d = mesh.splat_density_grid(cloud, device=dev)
+    grid_c = mesh.splat_density_grid(cloud, device="cpu")
+    grid_rel = float(np.abs(grid_d[0] - grid_c[0]).max() / grid_c[0].max())
+    mesh_d = [mesh.extract_mesh(cloud, device=dev) for _ in range(2)]
+    mesh_c = mesh.extract_mesh(cloud, device="cpu")
+    repeat = all(np.array_equal(a, b) for a, b in zip(*mesh_d))
+    log(f"[priors] card against CPU: winning plane hypothesis {fits[0][0]} / {fits[1][0]} "
+        f"({int(fits[0][3].sum())} inliers), metersPerModelUnit relative difference "
+        f"{rel:.3e}, density grid max relative difference {grid_rel:.3e}, faces "
+        f"{len(mesh_d[0][1])} / {len(mesh_c[1])}; two card plane fits and extract_mesh runs "
+        + ("bit-identical" if same_fit and repeat else "DIFFER"))
+    if not (same_fit and rel <= 1e-9 and grid_rel <= 1e-12 and repeat
+            and len(mesh_d[0][1]) == len(mesh_c[1])):
+        raise AssertionError("the plane fit or the mesh on the card differs from the CPU or "
+                             "does not repeat")
+
+    n_axis = int(np.argmax(np.abs(meas["groundPlane"]["normal"])))
+    plane = {1: "the ground", 2: "the back wall"}.get(n_axis, "a side plane")
+    true_scale = TRIPOD_HEIGHT_M * norm_scale  # metres per model unit
+    ransac_ms = time_ms(lambda: measurement.best_plane(
+        pts_d, np.random.default_rng(0), camera_centers=centers), 3)
+    grid_ms = time_ms(lambda: mesh._density_grid(cloud, 128, 0.05, dev), 3)
+    density = mesh._density_grid(cloud, 128, 0.05, dev)[0]
+    occupied = density[density > 1e-4]
+    iso = float(measurement.quantile(occupied, 0.6))
+    mt_ms = time_ms(lambda: mesh._polygonize(density, iso), 3)
+
+    # the CLI's convert on the job's .ply: its payload is the Python writer's
+    conv = os.path.join(root, "convert")
+    os.makedirs(conv)
+    ply_path = shutil.copy(os.path.join(exports, "splat.ply"), conv)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "tpu_splat_torch.cli.main", "convert",
+                           ply_path], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    convert_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"convert exited {proc.returncode}: {proc.stderr}")
+    with open(os.path.join(conv, "splat.spz"), "rb") as f:
+        ties = spz_rounding_ties(gzip.decompress(f.read()), load_ply(ply_path))
+
+    log_job("priors", res, lines, steps)
+    log(f"[priors] registered {n_reg}/{n}, {n_pts} points; plane found: {plane} (normal "
+        f"{np.round(meas['groundPlane']['normal'], 4).tolist()}, {meas['numPlaneInliers']} "
+        f"inliers), metersPerModelUnit {meas['metersPerModelUnit']:.5f} against a true "
+        f"{true_scale:.5f} (ground {TRIPOD_HEIGHT_M} m below the eyes, normalize_poses' scale "
+        f"{norm_scale:.4f}), confidence {meas['confidence']}; floorplan "
+        + (f"{floor['areaM2']:.2f} m2 ({floor['quality']})" if floor["valid"] else "not found")
+        + f"; {len(objects)} objects")
+    log(f"[priors] mesh: {len(verts)} vertices, {n_faces} faces from {cloud.num_points} "
+        f"gaussians, all inside the grid's cube, {in_box:.4f} inside the 1-99% box plus the "
+        f"padding; card: density grid {grid_ms:.2f} ms, marching tetrahedra {mt_ms:.2f} ms, "
+        f"plane RANSAC (500 hypotheses x {cloud.num_points} points) {ransac_ms:.2f} ms")
+    log(f"[priors] convert (native C++ codec, built at first use) {convert_s:.1f} s: the "
+        f".spz payload equals core/spz's but for {ties} bytes one level apart at rounding "
+        f"ties (the C++ codec quantizes in f32, core/spz in f64)")
+    log(f"[priors] CLI run {job_s:.1f} s (launches {launches})")
+    log(f"[priors] {card_line()}")
+
+
+def capture_stats(images: np.ndarray) -> tuple:
+    """The 8-bit frames' mean and their values at CAPTURE_PIXELS."""
+    frames = np.round(np.clip(images, 0, 1) * 255) / 255
+    return float(frames.mean()), [float(frames[p]) for p in CAPTURE_PIXELS]
+
+
+def global_sfm_phase(images: np.ndarray, viewmats: np.ndarray, steps: int) -> None:
+    """Phase 11 (see the module docstring): a global-SfM job on phase 7's
+    capture, held to the reference's recorded outcome."""
+    import shutil
+
+    from tpu_splat_torch.sfm import global_mapper
+
+    mean, values = capture_stats(images)
+    ref = GLOBAL_SFM_REFERENCE
+    if abs(mean - ref["capture_mean"]) > 1e-4 or np.abs(
+            np.subtract(values, ref["capture_values"])).max() > 1e-4:
+        raise AssertionError(f"the capture (mean {mean}, {values}) is not the one the "
+                             "reference's outcome was recorded on")
+    root = os.path.join(OUT_DIR, "global_sfm")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    zip_path = os.path.join(root, "capture.zip")
+    zip_frames(images, zip_path)
+    uuid, out = "chip-smoke-global-sfm", os.path.join(root, "out")
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:
+        json.dump({"uuid": uuid, "inputPath": zip_path, "outputPath": out,
+                   "sfm": {"softwareName": "glomap"}, "training": {"maxSteps": steps}}, f)
+    rot_calls, pos_calls = [], []
+    with recording(global_mapper, "rotation_averaging", rot_calls), \
+            recording(global_mapper, "global_positioning", pos_calls):
+        res, lines, launches, job_s = run_cli_job(job_path, "global-SfM job",
+                                                  "global_sfm_log.txt")
+    n_reg = int(res["metrics"]["num_registered"])
+    _, n_pts = check_job_artifacts(root, out, uuid, res, len(images),
+                                   ("transforms_json", "ply", "spz"))
+    rmse = model_rmse(model_poses(out), viewmats)
+    bar = max(2 * ref["rmse"], 0.01 * WALK_SPAN)
+    rel_line = next(s for s in lines if s.startswith("global:") and "relative poses" in s)
+    ba_lines = [s for s in lines if s.startswith("BA:")]
+    # the job's own averaging inputs, twice more on the card: bit for bit
+    (a_args, a_kw), (p_args, p_kw) = rot_calls[0], pos_calls[0]
+    reps = [(global_mapper.rotation_averaging(*a_args, **a_kw),
+             global_mapper.global_positioning(*p_args, **p_kw)) for _ in range(2)]
+    same = (np.array_equal(reps[0][0], reps[1][0])
+            and all(np.array_equal(a, b) for a, b in zip(reps[0][1], reps[1][1])))
+    log_job("global", res, lines, steps)
+    log(f"[global] {rel_line}; {len(p_args[5])} rays of {p_args[9]} tracks in the "
+        f"positioning; " + " / ".join(ba_lines))
+    log(f"[global] registered {n_reg}/{len(images)} (reference {ref['registered']}), "
+        f"{n_pts} points (reference {ref['points']}), camera-centre RMSE {rmse / WALK_SPAN:.5f} "
+        f"of the span (reference {ref['rmse'] / WALK_SPAN:.5f}, bar {bar / WALK_SPAN:.5f}), "
+        f"final BA rms {ba_lines[-1].split('rms ')[1] if ba_lines else '-'} (reference "
+        f"{ref['final_rms_px']} px); two rotation_averaging + global_positioning calls on the "
+        f"job's pairs: {'bit-identical' if same else 'DIFFER'}")
+    log(f"[global] CLI run {job_s:.1f} s (launches {launches})")
+    log(f"[global] {card_line()}")
+    if n_reg < ref["registered"] - 1:
+        raise AssertionError(f"global SfM registered {n_reg}, the reference {ref['registered']}")
+    if rmse > bar:
+        raise AssertionError(f"global SfM camera-centre RMSE {rmse:.4f} > {bar:.4f}")
+    if not same:
+        raise AssertionError("two identical averaging calls differ on the card")
+
 
 def main() -> int:
     import torch
@@ -1187,13 +1592,20 @@ def main() -> int:
 
     # 7. a default job on phase 6's frames, through the CLI
     job_phase(sfm_images, JOB_STEPS)
-    del sfm_images
 
     # 8. a --remove-background job, and the matting nets against the CPU
     remove_background_phase(dev, OPTION_STEPS)
 
     # 9. a --spherical job on ERP frames rendered by the port
     spherical_phase(dev, OPTION_STEPS)
+
+    # 10. a pose-prior job with every extra, on phase 6's frames
+    walk = walk_viewmats(len(sfm_images))
+    pose_prior_phase(sfm_images, walk, SFM_FOCAL, dev, OPTION_STEPS)
+
+    # 11. a global-SfM job on phase 7's capture
+    global_sfm_phase(sfm_images, walk, OPTION_STEPS)
+    del sfm_images
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

@@ -12,7 +12,7 @@ import torch
 
 from tpu_splat.gs import optim as joptim
 from tpu_splat_torch import convert
-from tpu_splat_torch.core.types import Cameras, SfMScene
+from tpu_splat_torch.core.types import Cameras, GaussianCloud, SfMScene
 from tpu_splat_torch.gs import params as tparams
 from tpu_splat_torch.gs import pipeline as tpipe
 from tpu_splat_torch.gs import rasterize as tras
@@ -48,6 +48,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "pipeline/component", "pipeline/runner", "pipeline/sink", "cli/main"}
     new |= {"matting/matnet", "matting/u2net", "matting/remove", "matting/synthdata",
             "spherical/projections", "spherical/pipeline", "cli/generate_splat"}
+    new |= {"sfm/pose_priors", "sfm/global_mapper", "export/measurement", "export/floorplan",
+            "export/objects", "export/mesh", "export/native", "core/meshrender"}
     assert {os.path.join("tpu_splat_torch", *m.split("/")) + ".py" for m in new} <= scanned
     assert len(files) > 40
     for path in files:
@@ -98,6 +100,23 @@ def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for(tmp_path):
         run_sfm(imgs, export_database="database.db")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         undistort_batch(imgs, 10.0, 10.0, 16.0, 16.0, -0.1)
+    from tpu_splat_torch.export.measurement import estimate_scale_from_tripod
+    from tpu_splat_torch.export.mesh import extract_mesh
+    from tpu_splat_torch.sfm.global_mapper import rotation_averaging, run_global_sfm
+    from tpu_splat_torch.sfm.pose_priors import sfm_with_pose_priors
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_global_sfm(imgs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sfm_with_pose_priors(imgs, np.tile(np.eye(4), (2, 1, 1)), 10.0, 10.0, 16.0, 16.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rotation_averaging(2, [(0, 1)], [np.eye(3)], [1.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        estimate_scale_from_tripod(np.zeros((20, 3)), np.tile(np.eye(4), (2, 1, 1)), 1.5)
+    cloud = GaussianCloud(pts, np.full((n, 3), -3.0), np.tile([1.0, 0, 0, 0], (n, 1)),
+                                np.ones(n), np.zeros((n, 3)), np.zeros((n, 0, 3)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_mesh(cloud, resolution=8)
     job = JobConfig(input_path=str(tmp_path / "capture.zip"), output_path=str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_job(job)

@@ -9,7 +9,10 @@ rotation and the artifact sink. The component graph, artifacts, metrics, job
 store, undistorted frames and delivered bytes are compared. So are the
 matting and spherical components (a --remove-background job, the human-
 subject removal with and without a masks/ directory, the 360-degree
-expansion) and the generator's job JSON (cli/generate_splat.py)."""
+expansion), the generator's job JSON (cli/generate_splat.py), the two
+pose-prior jobs (a transforms.json of ARKit poses, a COLMAP model with a
+radial k1; sfm_with_pose_priors faked too) and the functions every optional
+component runs (pose priors, glomap, the extras)."""
 
 import dataclasses
 import json
@@ -75,7 +78,10 @@ def graph(pkg, cfg):
 def test_component_graph_matches_reference():
     for payload in ({}, REFERENCE_JOB, {"segmentation": {"removeBackground": "true"},
                                         "measurement": {"referenceType": "tripod"},
-                                        "training": {"model": "nerfacto"}}):
+                                        "training": {"model": "nerfacto"}},
+                    {"sfm": {"softwareName": "glomap",
+                             "posePriors": {"usePosePriorTransformJson": {"enable": "true"}}},
+                     "semantic": {"enableObjectLayer": "true"}}):
         assert graph("port", tconfig.job_config_from_json(payload)) == \
             graph("ref", jconfig.job_config_from_json(payload))
 
@@ -263,33 +269,23 @@ def test_portrait_capture_gets_the_y_rotation_of_the_reference(tmp_path):
     {"training": {"model": "nerfacto"}},
     {"measurement": {"referenceType": "tripod"}},
     {"semantic": {"enableObjectLayer": "true"}},
-], ids=lambda p: next(iter(p)))
-def test_unported_components_fail_before_any_stage(tmp_path, fakes, payload):
-    calls, _ = fakes
-    zip_path = seeded_zip(str(tmp_path / "capture.zip"), n=3)
-    cfg = tconfig.job_config_from_json(dict(payload, inputPath=zip_path,
-                                            outputPath=str(tmp_path / "out")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1[0-4]"):
-        trunner.run_job(cfg, device="cpu")
-    assert not os.path.exists(tmp_path / "out") and not calls["port"]
-
-
-@pytest.mark.parametrize("payload", [
     {"segmentation": {"removeBackground": "true"}},
     {"segmentation": {"removeHumanSubject": "true"}},
     {"imageProcessing": {"blurMaskMethod": "u2net"}},
     {"sphericalCamera": {"enable": "true"}},
-], ids=lambda p: next(iter(p)))
-def test_matting_and_spherical_components_are_ported(payload):
-    """These options run the reference's functions' ports, not a refusal."""
+], ids=lambda p: next(iter(p)) + "-" + next(iter(next(iter(p.values())))))
+def test_optional_components_are_ported(payload):
+    """Every option runs the port of the reference's function (same names,
+    same enabled components), not a refusal; glomap swaps SfM's mapper
+    inside the same _sfm, as in the reference."""
     pipe = tcomp.Pipeline(name="g")
     trunner._register_components(pipe, tconfig.job_config_from_json(payload))
     enabled = [c for c in pipe.components if c.enabled]
-    assert not [c.name for c in enabled if isinstance(c.fn, trunner._NotPorted)]
     ref = jcomp.Pipeline(name="g")
     jrunner._register_components(ref, jconfig.job_config_from_json(payload), "")
     assert [c.fn.__name__ for c in enabled] == [c.fn.__name__ for c in ref.components
                                                 if c.enabled]
+    assert all(getattr(trunner, c.fn.__name__) is c.fn for c in enabled)
 
 
 def composite_zip(path, n=N, w=W, h=H):
@@ -459,3 +455,134 @@ def test_cli_run_and_status(tmp_path, fakes, capsys):
     assert tcli.main(["run", "--input", str(tmp_path / "none.zip"), "--output",
                       str(tmp_path / "out3"), "--device", "cpu"]) == 1
     assert "[710]" in capsys.readouterr().err
+
+
+@pytest.fixture
+def prior_fakes(fakes, monkeypatch):
+    """`fakes`, plus both packages' sfm_with_pose_priors replaced by one that
+    records its arguments and returns the priors as the scene (every frame
+    registered), with fake_arrays' points."""
+    from tpu_splat.sfm import pose_priors as jpp
+    from tpu_splat_torch.sfm import pose_priors as tpp
+
+    calls, state = fakes
+    for pkg, pp, types, wrap in (("ref", jpp, jtypes, jnp.asarray),
+                                 ("port", tpp, ttypes, lambda a: a)):
+        def fake(images, c2ws, fx, fy, cx, cy, mapper_cfg=None, log_fn=None, pkg=pkg,
+                 types=types, wrap=wrap, **kw):
+            calls[pkg]["priors"] = dict(images=images, c2ws=c2ws, intrin=(fx, fy, cx, cy),
+                                        kw=kw)
+            n = len(images)
+            _, pts, _ = fake_arrays(n)
+            cams = types.Cameras(
+                camtoworlds=wrap(c2ws.astype(np.float32)), fx=wrap(np.full(n, fx, np.float32)),
+                fy=wrap(np.full(n, fy, np.float32)), cx=wrap(np.full(n, cx, np.float32)),
+                cy=wrap(np.full(n, cy, np.float32)), distortion=wrap(np.zeros((n, 4), np.float32)),
+                width=W, height=H)
+            return types.SfMScene(cameras=cams, **{k: wrap(v) for k, v in pts.items()},
+                                  registered=wrap(np.ones(n, bool)))
+        monkeypatch.setattr(pp, "sfm_with_pose_priors", fake)
+    return calls, state
+
+
+def prior_poses(n):
+    """Seeded camera-to-world poses (OpenCV convention) of n frames."""
+    from test_torch_pose_priors import _rot
+
+    rng = np.random.default_rng(21)
+    c2w = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        c2w[i, :3, :3] = _rot(rng.normal(0, 0.3, 3))
+        c2w[i, :3, 3] = rng.normal(0, 2, 3)
+    return c2w
+
+
+def check_prior_job(tmp_path, calls, res, n_frames):
+    """Both packages completed the same component list, imported the same
+    normalised priors and intrinsics, handed the same frames to the
+    triangulation and trained on its scene; the delivered model and .spz are
+    byte-equal."""
+    got, want = res["port"], res["ref"]
+    assert got.status == want.status == "Complete"
+    assert list(got.timings) == list(want.timings)
+    assert {"Process-Pose-Priors", "Image-Undistorter", "SfM"} <= set(got.timings)
+    assert got.metrics == want.metrics and got.metrics["num_registered"] == n_frames
+    p_got, p_want = calls["port"]["priors"], calls["ref"]["priors"]
+    np.testing.assert_array_equal(p_got["c2ws"], p_want["c2ws"])
+    assert p_got["intrin"] == p_want["intrin"]
+    assert p_got["kw"] == {"device": torch.device("cpu")} and not p_want["kw"]
+    assert p_got["images"].shape == (n_frames, H, W, 3)
+    np.testing.assert_allclose(p_got["images"], p_want["images"], atol=1e-5, rtol=0)
+    assert "sfm" not in calls["port"] and "train" in calls["port"]
+    for sub in [os.path.join("colmap", "sparse", "0", f) for f in SPARSE] + [
+            os.path.join("colmap", "transforms.json"), os.path.join("exports", "splat.spz")]:
+        assert (tmp_path / "port" / sub).read_bytes() == (tmp_path / "ref" / sub).read_bytes(), \
+            sub
+    return p_got
+
+
+def test_pose_prior_transforms_json_job_matches_reference(tmp_path, prior_fakes):
+    """A NeRFCapture-style zip (frames + transforms.json of ARKit world-to-
+    camera matrices, for 11 of the 12 frames) -> the frames with a prior
+    are kept, the priors normalised, blind SfM skipped."""
+    from tpu_splat_torch.sfm.pose_priors import convert_pose, normalize_poses
+
+    calls, _ = prior_fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    c2w = prior_poses(N)
+    T = np.diag([1.0, -1.0, -1.0, 1.0])
+    frames = [{"file_path": f"images/frame_{i:03d}.png",
+               "transform_matrix": (T @ np.linalg.inv(c2w[i]) @ T).tolist()}
+              for i in range(N) if i != 4]
+    with zipfile.ZipFile(zip_path, "a") as zf:
+        zf.writestr("capture/transforms.json", json.dumps(
+            {"fl_x": 50.0, "fl_y": 52.0, "cx": 33.0, "cy": 23.5, "w": W, "h": H,
+             "frames": frames}))
+    res = run_both(tmp_path, {
+        "imageProcessing": {"filterBlurryImages": False}, "training": {"maxSteps": 7},
+        "sfm": {"posePriors": {"usePosePriorTransformJson": {
+            "enable": True, "sourceCoordinateName": "arkit", "poseIsWorldToCam": True}}}},
+        zip_path)
+    prior = check_prior_job(tmp_path, calls, res, N - 1)
+    assert prior["intrin"] == (50.0, 52.0, 33.0, 23.5)
+    keep = np.arange(N) != 4
+    np.testing.assert_allclose(prior["c2ws"], normalize_poses(c2w[keep])[0], atol=1e-12, rtol=0)
+    assert np.allclose(convert_pose(np.asarray(frames[0]["transform_matrix"]), "arkit", True),
+                       c2w[0])
+
+
+def test_pose_prior_colmap_model_job_matches_reference(tmp_path, prior_fakes):
+    """A zip carrying a COLMAP text model (sparse/0) whose SIMPLE_RADIAL
+    camera has a k1 -> poses read from the model, the frames undistorted on
+    the device before the fixed-pose triangulation."""
+    from tpu_splat_torch.sfm.colmap_io import write_colmap_model
+
+    calls, _ = prior_fakes
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"))
+    c2w = prior_poses(N).astype(np.float32)
+    cams = ttypes.Cameras(camtoworlds=c2w, fx=np.full(N, 55.0), fy=np.full(N, 55.0),
+                          cx=np.full(N, 32.0), cy=np.full(N, 24.0),
+                          distortion=np.zeros((N, 4)), width=W, height=H)
+    scene = ttypes.SfMScene(cameras=cams, points=np.zeros((0, 3)),
+                            point_colors=np.zeros((0, 3)), point_errors=np.zeros(0),
+                            track_counts=np.zeros(0, np.int32), registered=np.ones(N, bool))
+    model = tmp_path / "model"
+    write_colmap_model(scene, str(model), image_names=[f"frame_{i:03d}.png" for i in range(N)])
+    (model / "cameras.txt").write_text(f"1 SIMPLE_RADIAL {W} {H} 55.0 32.0 24.0 {K1}\n")
+    with zipfile.ZipFile(zip_path, "a") as zf:
+        for name in ("cameras.txt", "images.txt", "points3D.txt"):
+            zf.write(str(model / name), f"sparse/0/{name}")
+    res = run_both(tmp_path, {
+        "imageProcessing": {"filterBlurryImages": False}, "training": {"maxSteps": 7},
+        "sfm": {"posePriors": {"usePosePriorColmapModelFiles": True}}}, zip_path)
+    prior = check_prior_job(tmp_path, calls, res, N)
+    assert prior["intrin"] == (55.0, 55.0, 32.0, 24.0)
+    np.testing.assert_allclose(prior["c2ws"][:, :3, :3], c2w[:, :3, :3], atol=1e-5, rtol=0)
+    import cv2
+
+    with zipfile.ZipFile(zip_path) as zf:  # the frames as the job read them
+        raw = np.stack([cv2.imdecode(np.frombuffer(zf.read(f"capture/frame_{i:03d}.png"),
+                                                   np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+                        for i in range(N)]).astype(np.float32) / 255.0
+    diff = np.abs(prior["images"] - raw)
+    assert diff.max() > 0.05 and diff[:, 22:26, 30:34].max() < 0.02  # undistorted, not the centre

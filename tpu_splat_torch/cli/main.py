@@ -3,13 +3,15 @@
 Usage:
   tpu-splat-torch run job.json
   tpu-splat-torch run --input capture.mp4 --output out/ --max-steps 7000 --model splatfacto
+  tpu-splat-torch convert splat.ply      # .ply <-> .spz via the native codec
   tpu-splat-torch status out/ <uuid>     # job store lookup
 
 (or `python -m tpu_splat_torch.cli.main ...`). Jobs run on the GPU; `--device
 cpu` runs one on the CPU. The job-JSON schema matches the reference toolbox
 (generate_splat.py:48-96), so existing job files drive this CLI unchanged.
-`convert` and `serve` of the JAX package's CLI are not ported yet (ROADMAP.md
-queue 1 items 13 and 15).
+`convert` builds the repo's C++ codec (native/spz) with the C++ compiler at
+first use. `serve` of the JAX package's CLI is not ported yet (ROADMAP.md
+queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -67,6 +69,14 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    from tpu_splat_torch.export.native import run_splat_converter
+
+    out = run_splat_converter(args.input)
+    print(f"Converted {args.input} to {out}")
+    return 0
+
+
 def cmd_status(args) -> int:
     from tpu_splat_torch.pipeline.runner import JobStore
 
@@ -92,6 +102,10 @@ def main(argv=None) -> int:
     pr.add_argument("--device", default=None,
                     help="torch device of the job (default: cuda; 'cpu' runs it on the CPU)")
     pr.set_defaults(fn=cmd_run)
+
+    pc = sub.add_parser("convert", help="convert .ply <-> .spz (native codec)")
+    pc.add_argument("input")
+    pc.set_defaults(fn=cmd_convert)
 
     ps = sub.add_parser("status", help="look up job status in the job store")
     ps.add_argument("output", help="output directory used by the job")

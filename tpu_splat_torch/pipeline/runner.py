@@ -5,13 +5,19 @@ component graph, names, error codes, artifact paths and metrics:
   resolve-input -> video-to-images | extract-archive -> filter-blurry-images
   -> [remove-background] -> [spherical-to-perspective] -> sfm (features/match/
   map/BA) -> train-stage-1 (3DGS) -> export-ply -> rotate-pre-spz ->
-  mirror-pre-spz -> spz-export -> [estimate-scale -> floorplan -> object-layer]
-  -> artifact-export
+  mirror-pre-spz -> spz-export -> [mesh-export] -> [estimate-scale -> floorplan
+  -> object-layer] -> artifact-export
 
-The matting nets, the 360-degree expansion, SfM, undistortion and training
-run on the job's device (CUDA unless the caller asks for the CPU). A
-component the port does not have yet makes run_job raise
-NotImplementedError before any stage runs, naming its ROADMAP item.
+With pose priors (a transforms(-in).json or a COLMAP model in the capture),
+process-pose-priors and a pre-SfM image-undistorter run, and SfM triangulates
+against the fixed prior poses.
+
+The matting nets, the 360-degree expansion, SfM (incremental, global or
+with pose priors), undistortion, training and the extras (mesh, plane fits)
+run on the job's device (CUDA unless the caller asks for the CPU).
+Multi-device training is not ported yet: with enableMultiGpu on a machine
+with more than one card, run_job raises NotImplementedError before any stage
+runs, naming its ROADMAP item.
 
 Quality gates mirror main.py:2031-2087 (frames >= 10 & points >= 50 for
 splatfacto, >= 3/>= 3 otherwise); the delivery orientation dance mirrors
@@ -116,21 +122,18 @@ def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
     """Execute a reconstruction job end to end on `device` (CUDA unless the
     CPU is asked for). Returns the JobResult; raises PipelineError with a
     taxonomy code on failure (after recording it), and NotImplementedError,
-    before any stage, when the job enables a component not ported yet."""
+    before any stage, when the job asks for multi-card training on a machine
+    with more than one card (not ported yet)."""
     cfg.validate()
     dev = resolve_device(device)
     out_dir = os.path.abspath(cfg.output_path)
     pipe = Pipeline(name="3DGS-Pipeline", uuid=cfg.uuid, log_fn=log_fn)
     _register_components(pipe, cfg)
-    missing = [(c.name, c.fn.item) for c in pipe.components
-               if c.enabled and isinstance(c.fn, _NotPorted)]
     if cfg.training.enable and cfg.training.enable_multi_gpu and dev.type == "cuda" \
             and torch.cuda.device_count() > 1:
-        missing.append(("Train-Stage1 (enableMultiGpu)",
-                        "ROADMAP.md queue 1 item 14 (multi-device)"))
-    if missing:
-        raise NotImplementedError("the job enables components not ported yet: " + "; ".join(
-            f"{name}: {item}" for name, item in missing))
+        raise NotImplementedError(
+            "Train-Stage1 with enableMultiGpu on more than one card is not ported yet: "
+            "ROADMAP.md queue 1 item 14 (multi-device)")
 
     os.makedirs(out_dir, exist_ok=True)
     store = JobStore(out_dir)
@@ -164,22 +167,6 @@ def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
 # ---------------------------------------------------------------------------
 
 
-class _NotPorted:
-    """The function of a component the port does not have yet; run_job
-    refuses a job that enables one before any stage runs."""
-
-    def __init__(self, item: str):
-        self.item = item
-
-    def __call__(self, ctx: PipelineContext):
-        raise NotImplementedError(f"not ported yet: {self.item}")
-
-
-_POSE_PRIORS = _NotPorted("ROADMAP.md queue 1 item 10.4 (sfm/pose_priors.py)")
-_GLOBAL_SFM = _NotPorted("ROADMAP.md queue 1 item 10.5 (sfm/global_mapper.py)")
-_EXTRAS = _NotPorted("ROADMAP.md queue 1 item 13 (export extras)")
-
-
 def _register_components(pipe: Pipeline, cfg: JobConfig):
     pipe.create_component("Resolve-Input", ComponentType.LOADER, _resolve_input, 705)
     pipe.create_component("Media-To-Images", ComponentType.LOADER, _media_to_images, 730)
@@ -202,17 +189,16 @@ def _register_components(pipe: Pipeline, cfg: JobConfig):
     use_priors = (cfg.sfm.pose_priors.use_pose_prior_transform_json
                   or cfg.sfm.pose_priors.use_pose_prior_colmap_model_files)
     pipe.create_component(
-        "Process-Pose-Priors", ComponentType.TRANSFORM, _POSE_PRIORS, 725,
+        "Process-Pose-Priors", ComponentType.TRANSFORM, _load_pose_priors, 725,
         enabled=cfg.sfm.enable and use_priors,
     )
     # As in the reference, the pre-SfM undistorter runs exactly when pose
     # priors are on (distortion then comes from a prior COLMAP model).
     pipe.create_component(
-        "Image-Undistorter", ComponentType.TRANSFORM, _POSE_PRIORS, 755,
+        "Image-Undistorter", ComponentType.TRANSFORM, _undistort, 755,
         enabled=cfg.sfm.enable and use_priors,
     )
-    sfm_fn = _GLOBAL_SFM if cfg.sfm.software_name in ("glomap", "global") else _sfm
-    pipe.create_component("SfM", ComponentType.TRANSFORM, sfm_fn, 755,
+    pipe.create_component("SfM", ComponentType.TRANSFORM, _sfm, 755,
                           enabled=cfg.sfm.enable)
     pipe.create_component("Quality-Gate", ComponentType.FILTER, _quality_gate, 795,
                           enabled=cfg.sfm.enable and cfg.training.enable)
@@ -225,19 +211,19 @@ def _register_components(pipe: Pipeline, cfg: JobConfig):
         enabled=cfg.training.enable,
     )
     pipe.create_component(
-        "Mesh-Export", ComponentType.EXPORTER, _EXTRAS, 785,
+        "Mesh-Export", ComponentType.EXPORTER, _export_mesh, 785,
         enabled=cfg.training.enable and cfg.training.model == "nerfacto",
     )
     pipe.create_component(
-        "Estimate-Scale", ComponentType.EXPORTER, _EXTRAS, 795,
+        "Estimate-Scale", ComponentType.EXPORTER, _estimate_scale, 795,
         enabled=cfg.measurement.reference_type != "none",
     )
     pipe.create_component(
-        "Extract-Floorplan", ComponentType.EXPORTER, _EXTRAS, 795,
+        "Extract-Floorplan", ComponentType.EXPORTER, _floorplan, 795,
         enabled=cfg.measurement.reference_type != "none",
     )
     pipe.create_component(
-        "Extract-Object-Layer", ComponentType.EXPORTER, _EXTRAS, 795,
+        "Extract-Object-Layer", ComponentType.EXPORTER, _object_layer, 795,
         enabled=cfg.semantic.enable_object_layer,
     )
     pipe.create_component("Artifact-Export", ComponentType.EXPORTER, _artifact_export, 786)
@@ -433,6 +419,128 @@ def _remove_human_subject(ctx: PipelineContext):
     ctx["masks"] = keep
 
 
+def _load_pose_priors(ctx: PipelineContext):
+    """Import prior camera poses (the ProcessPoseTransforms analog,
+    main.py:989-1009): either a NeRFCapture transforms(-in).json or an existing
+    COLMAP text model shipped inside the capture archive. Aligns poses to the
+    surviving image set by file name, normalizes translations, and records
+    intrinsics (+ distortion, for the undistorter)."""
+    from tpu_splat_torch.sfm.pose_priors import load_transforms_json, normalize_poses
+
+    cfg: JobConfig = ctx["cfg"]
+    pp = cfg.sfm.pose_priors
+    raw_dir = ctx.get("raw_dir")
+    names = ctx.get("image_names")
+    if raw_dir is None or names is None:
+        raise PipelineError(
+            720, "pose priors require a .zip or image-directory input"
+        )
+    images = ctx.require("images")
+    h, w = images.shape[1:3]
+
+    if pp.use_pose_prior_transform_json:
+        path = os.path.join(raw_dir, "transforms-in.json")
+        if not os.path.exists(path):
+            path = os.path.join(raw_dir, "transforms.json")
+        if not os.path.exists(path):
+            raise PipelineError(725, f"no transforms(-in).json under {raw_dir}")
+        c2ws, intrin, frame_names = load_transforms_json(
+            path, source=pp.source_coordinate_name,
+            is_world_to_cam=pp.pose_is_world_to_cam,
+        )
+        pose_of = {os.path.basename(n): c2ws[i] for i, n in enumerate(frame_names)}
+        # json intrinsics are at capture resolution; frames may have been resized
+        sx = w / intrin["w"] if intrin["w"] else 1.0
+        sy = h / intrin["h"] if intrin["h"] else 1.0
+        fx = (intrin["fx"] or 0.9 * w) * sx
+        fy = (intrin["fy"] or fx) * sy
+        cx = (intrin["cx"] or w / 2 / sx) * sx
+        cy = (intrin["cy"] or h / 2 / sy) * sy
+        dist = np.zeros(4)
+    else:  # COLMAP text model files
+        from tpu_splat_torch.sfm.colmap_io import qvec_to_rotmat, read_colmap_model
+
+        model_dir = None
+        for cand in ("sparse/0", "sparse", "colmap/sparse/0"):
+            d = os.path.join(raw_dir, cand)
+            if os.path.exists(os.path.join(d, "cameras.txt")):
+                model_dir = d
+                break
+        if model_dir is None:
+            raise PipelineError(725, f"no COLMAP text model under {raw_dir}")
+        cameras, img_map, _, _ = read_colmap_model(model_dir)
+        cam = cameras[sorted(cameras)[0]]
+        params = cam["params"]
+        model = cam["model"].upper()
+        if model == "SIMPLE_PINHOLE":
+            fx = fy = params[0]
+            cx, cy = params[1:3]
+            dist = np.zeros(4)
+        elif model == "PINHOLE":
+            fx, fy, cx, cy = params[:4]
+            dist = np.zeros(4)
+        elif model == "SIMPLE_RADIAL":
+            fx = fy = params[0]
+            cx, cy = params[1:3]
+            dist = np.array([params[3], 0.0, 0.0, 0.0])
+        elif model == "RADIAL":
+            fx = fy = params[0]
+            cx, cy = params[1:3]
+            dist = np.array([params[3], params[4], 0.0, 0.0])
+        elif model == "OPENCV":
+            fx, fy, cx, cy = params[:4]
+            dist = np.array(params[4:8] + [0.0] * (8 - len(params)))[:4]
+        else:
+            raise PipelineError(700, f"unsupported camera model {model}")
+        sx = w / cam["width"] if cam["width"] else 1.0
+        sy = h / cam["height"] if cam["height"] else 1.0
+        fx *= sx
+        fy *= sy
+        cx *= sx
+        cy *= sy
+        pose_of = {}
+        for name, rec in img_map.items():
+            R = qvec_to_rotmat(rec["qvec"])
+            c2w = np.eye(4)
+            c2w[:3, :3] = R.T
+            c2w[:3, 3] = -R.T @ rec["tvec"]
+            pose_of[os.path.basename(name)] = c2w
+
+    have = np.array([n in pose_of for n in names])
+    if have.sum() < 3:
+        raise PipelineError(
+            725, f"only {int(have.sum())}/{len(names)} frames have prior poses"
+        )
+    keep_idx = np.flatnonzero(have)
+    ctx["images"] = images[keep_idx]
+    ctx["image_names"] = [names[i] for i in keep_idx]
+    if ctx.get("masks") is not None:
+        ctx["masks"] = ctx["masks"][keep_idx]
+    c2ws = np.stack([pose_of[names[i]] for i in keep_idx])
+    c2ws, _, _ = normalize_poses(c2ws)
+    ctx["prior_c2ws"] = c2ws
+    ctx["prior_intrin"] = (float(fx), float(fy), float(cx), float(cy))
+    ctx["prior_distortion"] = np.asarray(dist, np.float64)
+
+
+def _undistort(ctx: PipelineContext):
+    """Undistort frames to a pinhole model when the prior COLMAP model carries
+    distortion (the colmap image_undistorter analog, main.py:1161-1180), on
+    the job's device. Runs before feature extraction so everything
+    downstream is pinhole."""
+    dist = ctx.get("prior_distortion")
+    if dist is None or not np.any(np.abs(dist) > 1e-12):
+        return  # pinhole already
+    from tpu_splat_torch.sfm.undistort import undistort_batch
+
+    fx, fy, cx, cy = ctx["prior_intrin"]
+    ctx["images"] = undistort_batch(ctx.require("images"), fx, fy, cx, cy,
+                                    k1=float(dist[0]), k2=float(dist[1]),
+                                    p1=float(dist[2]), p2=float(dist[3]),
+                                    device=ctx["device"])
+    ctx["prior_distortion"] = np.zeros(4)
+
+
 def _spherical(ctx: PipelineContext):
     from tpu_splat_torch.spherical.pipeline import expand_equirectangular_captures
 
@@ -465,19 +573,35 @@ def _sfm(ctx: PipelineContext):
         refine_per_camera=cfg.sfm.refine_intrinsics_per_camera,
     )
     try:
-        # EXIF focal (when present) seeds self-calibration; refinement
-        # stays ON either way (COLMAP mapper default behavior)
-        exif_fx = ctx.get("exif_fx")
-        if exif_fx:
-            mcfg = dataclasses.replace(mcfg, refine_intrinsics=True)
-        colmap_dir = os.path.join(ctx["out_dir"], "colmap")
-        os.makedirs(colmap_dir, exist_ok=True)
-        db_path = os.path.join(colmap_dir, "database.db")
-        scene = run_sfm(images, mcfg, fx=exif_fx, fy=exif_fx,
-                        log_fn=pipe_logger(ctx),
-                        export_database=db_path, device=ctx["device"])
-        if os.path.exists(db_path):
-            ctx.setdefault("artifacts", {})["colmap_db"] = db_path
+        if ctx.get("prior_c2ws") is not None:
+            # fixed-pose triangulation (colmap point_triangulator analog,
+            # main.py:1090-1113) against the imported prior poses
+            from tpu_splat_torch.sfm.pose_priors import sfm_with_pose_priors
+
+            fx, fy, cx, cy = ctx["prior_intrin"]
+            scene = sfm_with_pose_priors(
+                images, ctx["prior_c2ws"], fx, fy, cx, cy,
+                mapper_cfg=mcfg, log_fn=pipe_logger(ctx), device=ctx["device"],
+            )
+        elif cfg.sfm.software_name in ("glomap", "global"):
+            from tpu_splat_torch.sfm.global_mapper import run_global_sfm
+
+            scene = run_global_sfm(images, mcfg, log_fn=pipe_logger(ctx),
+                                   device=ctx["device"])
+        else:
+            # EXIF focal (when present) seeds self-calibration; refinement
+            # stays ON either way (COLMAP mapper default behavior)
+            exif_fx = ctx.get("exif_fx")
+            if exif_fx:
+                mcfg = dataclasses.replace(mcfg, refine_intrinsics=True)
+            colmap_dir = os.path.join(ctx["out_dir"], "colmap")
+            os.makedirs(colmap_dir, exist_ok=True)
+            db_path = os.path.join(colmap_dir, "database.db")
+            scene = run_sfm(images, mcfg, fx=exif_fx, fy=exif_fx,
+                            log_fn=pipe_logger(ctx),
+                            export_database=db_path, device=ctx["device"])
+            if os.path.exists(db_path):
+                ctx.setdefault("artifacts", {})["colmap_db"] = db_path
     except RuntimeError as e:
         raise PipelineError(755, str(e)) from e
     ctx["scene"] = scene
@@ -628,6 +752,77 @@ def _export_spz(ctx: PipelineContext):
     if cfg.training.rotate_splat:
         delivered = mirror_splat(rotate_splat(cloud, "x:180,y:180"), "x")
         save_ply(delivered, os.path.join(out, "splat.ply"))
+
+
+def _export_mesh(ctx: PipelineContext):
+    """Polygonize the trained splat into poisson_mesh.ply + textured mesh
+    .obj/.glb (the nerfacto mesh-export deliverables, main.py:1388-1468), on
+    the job's device."""
+    from tpu_splat_torch.export.mesh import export_mesh_artifacts
+
+    out = os.path.join(ctx["out_dir"], "exports")
+    os.makedirs(out, exist_ok=True)
+    arts = export_mesh_artifacts(ctx.require("splat"), out, device=ctx["device"])
+    pipe_logger(ctx)(
+        f"mesh: {arts['n_vertices']} vertices, {arts['n_faces']} faces"
+    )
+    ctx.setdefault("artifacts", {}).update(
+        {k: v for k, v in arts.items() if isinstance(v, str)}
+    )
+
+
+def _estimate_scale(ctx: PipelineContext):
+    from tpu_splat_torch.export.measurement import estimate_scale_from_tripod
+
+    cfg: JobConfig = ctx["cfg"]
+    scene = ctx.require("scene")
+    result = estimate_scale_from_tripod(
+        to_numpy(ctx.require("splat").means),
+        to_numpy(scene.cameras.camtoworlds),
+        tripod_height_m=cfg.measurement.tripod_height_m,
+        device=ctx["device"],
+    )
+    path = os.path.join(ctx["out_dir"], "exports", "measurement.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=2)
+    ctx.setdefault("artifacts", {})["measurement"] = path
+    ctx["scale_m_per_unit"] = result.get("metersPerModelUnit", 0.0)
+
+
+def _floorplan(ctx: PipelineContext):
+    from tpu_splat_torch.export.floorplan import extract_floorplan
+
+    # Gate on scale estimation having actually found a ground plane — a
+    # floorplan with made-up meters is worse than none (reference only runs
+    # extract_floorplan.py after estimate_scale succeeds).
+    scale = ctx.get("scale_m_per_unit", 0.0)
+    if not scale or scale <= 0.0:
+        pipe_logger(ctx)("floorplan: skipped (no scale estimate)")
+        return
+    out = os.path.join(ctx["out_dir"], "exports")
+    arts = extract_floorplan(
+        to_numpy(ctx.require("splat").means),
+        scale_m_per_unit=scale,
+        out_dir=out,
+        device=ctx["device"],
+    )
+    ctx.setdefault("artifacts", {}).update(arts)
+
+
+def _object_layer(ctx: PipelineContext):
+    from tpu_splat_torch.export.objects import extract_object_layer
+
+    cfg: JobConfig = ctx["cfg"]
+    out = os.path.join(ctx["out_dir"], "exports")
+    arts = extract_object_layer(
+        to_numpy(ctx.require("splat").means),
+        scale_m_per_unit=ctx.get("scale_m_per_unit", 1.0),
+        min_object_area_m2=cfg.semantic.min_object_area_m2,
+        out_dir=out,
+        device=ctx["device"],
+    )
+    ctx.setdefault("artifacts", {}).update(arts)
 
 
 def _artifact_export(ctx: PipelineContext):

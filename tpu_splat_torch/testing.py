@@ -180,13 +180,20 @@ def centre_rmse(scene, viewmats: np.ndarray) -> float:
     """RMSE, in world units, of an SfMScene's registered camera centres
     against the true ones (world-to-camera `viewmats`, one per input image)
     after a similarity alignment."""
+    reg = np.asarray(scene.registered)
+    return camera_centre_rmse(np.asarray(scene.cameras.camtoworlds), np.asarray(viewmats)[reg])
+
+
+def camera_centre_rmse(camtoworlds: np.ndarray, viewmats: np.ndarray) -> float:
+    """RMSE, in world units, of camera-to-world poses' centres against the
+    true ones (world-to-camera `viewmats`, one per pose) after a similarity
+    alignment."""
     import torch
 
     from tpu_splat_torch.sfm.geometry import umeyama_alignment
 
-    reg = np.asarray(scene.registered)
-    gt = np.stack([-vm[:3, :3].T @ vm[:3, 3] for vm in viewmats])[reg].astype(np.float32)
-    rec = np.asarray(scene.cameras.camtoworlds)[:, :3, 3].astype(np.float32)
+    gt = np.stack([-vm[:3, :3].T @ vm[:3, 3] for vm in viewmats]).astype(np.float32)
+    rec = np.asarray(camtoworlds)[:, :3, 3].astype(np.float32)
     s, R, t = umeyama_alignment(torch.from_numpy(rec), torch.from_numpy(gt))
     aligned = float(s) * rec @ R.numpy().T + t.numpy()
     return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
