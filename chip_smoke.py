@@ -105,12 +105,36 @@ the JAX package. Phases, each of which raises on failure:
    reference's, 1% of the walk's span), and the job's own rotation_averaging
    and global_positioning inputs, run twice more on the card, agree bit for
    bit. Prints the relative-pose count, the averaging, positioning and BA
-   seconds and the component seconds.
+   seconds and the component seconds;
+12. multi-card training on the one card, in a process group of this process
+   and in spawned ranks: (a) one NCCL rank, {data:1, gauss:1}, at phase 4's
+   width: make_distributed_train_step against train_step on the same view
+   from the same state (loss and every parameter, Adam moment and densify
+   accumulator within 1e-6 of the tensor's max), two identical distributed
+   steps bit-identical, ms/step of each from CUDA events; (b) four gloo
+   ranks, {data:2, gauss:2}, on this card (NCCL refuses two ranks on one
+   card; the phase picks gloo), 2 steps on 2 views against this process's
+   2-view mean-of-views step (loss 1e-5 relative, tensors at (a)'s bar),
+   every rank holding only its half of the rows, both kernels launched on
+   every rank; s/step and peak memory of each rank; (c)
+   train_splat(distributed=True) on phase 5's scene (one NCCL rank spawned
+   by the launcher) through the refine at step 500: the gaussian count must
+   change, the PSNR be finite, and the step-260 checkpoint restore bit for
+   bit into a DistributedTrainer of this process's group and run on;
+13. the web console: web.server.start_background on a fresh store answers a
+   validateOnly job (200) and a malformed one (400), runs phase 11's job
+   (glomap, maxSteps 300) as a CLI subprocess on the card until Complete
+   (300 s at most), and serves /api/splat/<uuid> byte-identical to
+   cloud_to_splat_bytes of the job's splat.ply and /artifacts/<uuid>/
+   splat.ply byte-identical to the file; a `..` segment gets 400 and a
+   cross-origin POST 403. Prints the job's seconds.
 
-The launch counters are zeroed just before each of the seven training paths
-(phases 4, 5, 7, 8, 9, 10 and 11) and read just after it; both kernels must
-have launched in each. SfM, the matting nets and the extras hold no
-hand-written kernel.
+The launch counters are zeroed just before each of the training paths
+(phases 4, 5, 7, 8, 9, 10, 11, 12 and 13) and read just after it; both
+kernels must have launched in each, and in every rank or job process of
+phases 12 and 13 (those start counting from 0, and the processes that
+phases 12(c) and 13 start write their counts to TPU_SPLAT_LAUNCH_DIR as they
+exit). SfM, the matting nets and the extras hold no hand-written kernel.
 The line before the last is the {"kernels": [...]} record, with phase 4's
 launches; the last line is {"ok": true, "device": {...}}.
 """
@@ -1438,6 +1462,349 @@ def global_sfm_phase(images: np.ndarray, viewmats: np.ndarray, steps: int) -> No
         raise AssertionError("two identical averaging calls differ on the card")
 
 
+def state_errors(got: dict, want: dict) -> dict:
+    """max|d| / max|ref| of every tensor of two states (numpy dicts of one
+    layout); a bool tensor counts 1 unless equal."""
+    errs = {}
+    for key, ref in want.items():
+        g = got[key]
+        if g.shape != ref.shape:
+            raise AssertionError(f"{key}: shape {g.shape} against {ref.shape}")
+        if ref.dtype == bool or ref.size == 0:
+            errs[key] = 0.0 if np.array_equal(g, ref) else 1.0
+            continue
+        d = float(np.abs(g.astype(np.float64) - ref).max())
+        errs[key] = d / max(float(np.abs(ref).max()), 1e-30) if d else 0.0
+    return errs
+
+
+def read_launch_dir(directory: str) -> list:
+    """The launch counts that each process started with TPU_SPLAT_LAUNCH_DIR
+    wrote as it exited."""
+    return [json.load(open(os.path.join(directory, n))) for n in sorted(os.listdir(directory))
+            if n.startswith("launches_")]
+
+
+@contextlib.contextmanager
+def launch_dir(name: str):
+    """TPU_SPLAT_LAUNCH_DIR set to a fresh directory for the processes started
+    inside the block (they count from 0); yields the directory."""
+    import shutil
+
+    from tpu_splat_torch.gs import cuda_raster as cr
+
+    directory = os.path.join(OUT_DIR, name)
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    os.environ[cr.LAUNCH_DIR_ENV] = directory
+    try:
+        yield directory
+    finally:
+        del os.environ[cr.LAUNCH_DIR_ENV]
+
+
+def check_rank_launches(path: str, per_rank: list, n_ranks: int) -> None:
+    log(f"[main path] {path}: launches per rank {per_rank}")
+    if len(per_rank) != n_ranks:
+        raise AssertionError(f"{path}: {len(per_rank)} launch records for {n_ranks} processes")
+    for r, launches in enumerate(per_rank):
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"kernel {name} was not launched by process {r} of the "
+                                     f"{path} path")
+
+
+def mesh_phase(dev, scene, imgs, psnr_single: float) -> dict:
+    """Phase 12 (see the module docstring): multi-card training on one card.
+    Returns the launches per rank of (a), (b) and (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_splat_torch.gs import cuda_raster as cr
+    from tpu_splat_torch.gs.optim import adam_init
+    from tpu_splat_torch.gs.params import init_params_from_points
+    from tpu_splat_torch.gs.pipeline import eval_split, train_splat
+    from tpu_splat_torch.gs.strategy import densify_state_init
+    from tpu_splat_torch.gs.trainer import TrainConfig, train_step
+    from tpu_splat_torch.mesh.distributed import make_distributed_train_step, make_mesh
+    from tpu_splat_torch.mesh.launch import spawn_ranks
+    from tpu_splat_torch.mesh.trainer import DistributedTrainer
+    from tpu_splat_torch.testing import full_trainer_state, mesh_checks, step_state
+
+    brng = np.random.default_rng(0)
+    params = bench_params(brng, 1 << 19, 400_000, dev)
+    vms, intrins, images = ring_views(8, 1280, 720, brng)
+    capacity, (height, width) = params["means"].shape[0], images.shape[1:3]
+    n_alive = int(params["alive"].sum())
+    vms_d, images_d = torch.from_numpy(vms).to(dev), torch.from_numpy(images).to(dev)
+    cfg = TrainConfig(max_steps=30000, sh_degree=3, random_background=False)
+    launches = {}
+    run_dir = tempfile.mkdtemp(dir=OUT_DIR)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(run_dir, 'rendezvous')}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+
+        def dist_steps(p, a, d, n_views, n_steps):
+            step_fn = make_distributed_train_step(mesh, cfg, width, height, 3, 2.0)
+            losses = []
+            for i in range(n_steps):
+                p, a, d, m, _ = step_fn(p, a, d, images_d[:n_views], vms_d[:n_views],
+                                        intrins[:n_views],
+                                        torch.zeros((n_views, 1, 1), device=dev),
+                                        torch.zeros((n_views, 6), device=dev), i, i)
+                losses.append(float(m["loss"]))
+            return (p, a, d), losses
+
+        def fresh():
+            return ({k: v.clone() for k, v in params.items()}, adam_init(params),
+                    densify_state_init(capacity, dev))
+
+        # (a) one NCCL rank against train_step on view 0, then twice again
+        cr.reset_launch_counts()
+        (pa, aa, da), loss_a = dist_steps(*fresh(), 1, 1)
+        torch.cuda.synchronize()
+        launches["one NCCL rank"] = [dict(cr.LAUNCHES)]
+        check_rank_launches("distributed step, one NCCL rank", launches["one NCCL rank"], 1)
+        dist_a = step_state(pa, aa, da)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        p1, a1, d1, m1 = train_step(*fresh(), images_d[0], vms_d[0], intrins[0], 0, gen, 2.0,
+                                    cfg, width, height, 3)
+        errs = state_errors(dist_a, step_state(p1, a1, d1))
+        loss_err = abs(loss_a[0] - float(m1["loss"])) / abs(float(m1["loss"]))
+        (pb, ab, db), loss_b = dist_steps(*fresh(), 1, 1)
+        same = state_errors(step_state(pb, ab, db), dist_a)
+        repeat = [k for k, e in same.items() if e != 0.0 or loss_b != loss_a]
+
+        def timed(fn, n):
+            fn()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(n):
+                fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            return ev0.elapsed_time(ev1) / n
+
+        state = fresh()
+        step_fn = make_distributed_train_step(mesh, cfg, width, height, 3, 2.0)
+        zeros_m, zeros_c = torch.zeros((1, 1, 1), device=dev), torch.zeros((1, 6), device=dev)
+        dist_ms = timed(lambda: step_fn(*state, images_d[:1], vms_d[:1], intrins[:1], zeros_m,
+                                        zeros_c, 0, 0), 5)
+        # both with camera-pose gradients, as the distributed step takes them
+        single_ms = timed(lambda: train_step(*state, images_d[0], vms_d[0], intrins[0], 0, gen,
+                                             2.0, cfg, width, height, 3,
+                                             cam_delta=zeros_c[0]), 5)
+        worst = max(errs, key=errs.get)
+        log(f"[mesh] (a) {{data:1, gauss:1}}, one NCCL rank, {width}x{height} SH3 K=256, "
+            f"{capacity} capacity / {n_alive} alive: "
+            f"against train_step on the same view: loss {loss_err:.3e} relative, largest "
+            f"tensor error {errs[worst]:.3e} of its max ({worst}) over {len(errs)} tensors; "
+            f"two identical distributed steps: "
+            + ("bit-identical" if not repeat else f"DIFFER in {repeat}")
+            + f"; {dist_ms:.2f} ms/step distributed, {single_ms:.2f} ms/step train_step")
+        if loss_err > 1e-6 or errs[worst] > 1e-6:
+            raise AssertionError(f"(a) the distributed step is not train_step's: {errs}")
+        if repeat:
+            raise AssertionError(f"(a) two identical distributed steps differ: {repeat}")
+        del pa, aa, da, pb, ab, db, p1, a1, d1, state
+
+        # (b) four gloo ranks {data:2, gauss:2} on this card against this
+        # process's 2-view mean-of-views step, 2 steps each
+        setup = dict(mesh=(2, 2), params={k: v.cpu().numpy() for k, v in params.items()},
+                     scene_scale=2.0, full_from=[0],
+                     batch=dict(images=images[:2], viewmats=vms[:2], intrins=intrins[:2],
+                                masks=np.zeros((2, 1, 1), np.float32),
+                                cam_deltas=np.zeros((2, 6), np.float32)),
+                     runs=[("full width", cfg, False, 2)])
+        t0 = time.time()
+        ranks = spawn_ranks(mesh_checks, (setup,), "gloo", ["cuda:0"] * 4)
+        spawn_s = time.time() - t0
+        (p_ref, a_ref, d_ref), loss_r = dist_steps(*fresh(), 2, 2)
+        ref = step_state(p_ref, a_ref, d_ref)
+        del p_ref, a_ref, d_ref
+        got = ranks[0]["runs"]["full width"]
+        errs_b = state_errors(got["state"], ref)
+        loss_errs = [abs(g - r) / abs(r) for g, r in zip(got["loss"], loss_r)]
+        worst_b = max(errs_b, key=errs_b.get)
+        launches["four gloo ranks"] = [r["launches"] for r in ranks]
+        rows = [r["shard_rows"] for r in ranks]
+        log(f"[mesh] (b) {{data:2, gauss:2}}, four gloo ranks on one card: rank 0 against one "
+            f"process's 2-view step over 2 steps: loss {max(loss_errs):.3e} relative, largest "
+            f"tensor error {errs_b[worst_b]:.3e} of its max ({worst_b}); shard rows "
+            f"{sorted({n for r in rows for n in r.values()})} of {capacity}; "
+            + ", ".join(f"rank {r['rank']} {r['runs']['full width']['s_per_step']:.3f} s/step "
+                        f"peak {r['runs']['full width']['peak_gib'] or 0:.2f} GiB" for r in ranks)
+            + f"; spawn to results {spawn_s:.1f} s")
+        check_rank_launches("four gloo ranks", launches["four gloo ranks"], 4)
+        if max(loss_errs) > 1e-5 or errs_b[worst_b] > 1e-6:
+            raise AssertionError(f"(b) four ranks against one process: {loss_errs} {errs_b}")
+        if any(set(r.values()) != {capacity // 2} for r in rows):
+            raise AssertionError(f"(b) a rank holds more than its shard: {rows}")
+        del ranks, got, ref
+
+        # (c) train_splat(distributed=True) on phase 5's scene, one NCCL rank
+        # spawned by the launcher, through the refine at step 500
+        ckpt = os.path.join(OUT_DIR, "mesh_checkpoints")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.time()
+        with launch_dir("mesh_launches") as ldir:
+            cloud, metrics = train_splat(scene, imgs, max_steps=520, downscale_factor=1,
+                                         sh_degree=3, seed=0, checkpoint_dir=ckpt,
+                                         checkpoint_every=260, distributed=True,
+                                         log_fn=lambda s: log(f"[mesh] (c) {s}"), device=dev)
+        train_s = time.time() - t0
+        launches["train_splat"] = read_launch_dir(ldir)
+        check_rank_launches("train_splat(distributed=True)", launches["train_splat"], 1)
+        # the mid-run checkpoint, restored here (a DistributedTrainer in this
+        # process's group, as under torchrun), equals the file, and runs on
+        saved = torch.load(os.path.join(ckpt, "step_00000260.pt"), weights_only=True)
+        n = len(imgs)
+        train_idx = np.setdiff1d(np.arange(n), eval_split(n))
+        cams = scene.cameras
+        intr = np.stack([cams.fx, cams.fy, cams.cx, cams.cy], axis=1).astype(np.float32)
+        init = init_params_from_points(scene.points, scene.point_colors,
+                                       capacity=saved["params"]["means"].shape[0], sh_degree=3,
+                                       device=dev)
+        pts = np.asarray(scene.points)
+        scale = float(np.mean(np.linalg.norm(pts - pts.mean(0), axis=1))) * 1.1
+        tr = DistributedTrainer(init, imgs[train_idx], np.asarray(cams.worldtocams)[train_idx],
+                                intr[train_idx], scale,
+                                TrainConfig.for_model("splatfacto", 520), mesh=mesh)
+        tr.load_checkpoint(ckpt, step=260)
+        restored = full_trainer_state(tr)
+        want = {"param " + k: v for k, v in saved["params"].items()}
+        want.update({"mu " + k: v for k, v in saved["adam_mu"].items()})
+        want.update({"nu " + k: v for k, v in saved["adam_nu"].items()})
+        want.update({"densify grad_accum": saved["dstate_grad"],
+                     "densify count_accum": saved["dstate_count"],
+                     "count": saved["adam_count"], "cam_deltas": saved["cam_deltas"]})
+        differ = [k for k, v in want.items()
+                  if not np.array_equal(restored[k], v.float().numpy() if v.dtype ==
+                                        torch.bfloat16 else v.numpy())]
+        tr.run(2)
+        finite = all(torch.isfinite(v).all() for k, v in tr.params.items() if k != "alive")
+        log(f"[mesh] (c) train_splat(distributed=True), one NCCL rank, 520 steps in "
+            f"{train_s:.1f} s: {scene.num_points} seed points -> {cloud.num_points} gaussians, "
+            f"held-out psnr {metrics['psnr']:.3f} (single card, phase 5: {psnr_single:.3f}); "
+            f"the step-260 checkpoint restored here: "
+            + ("bit-identical" if not differ else f"DIFFERS in {differ}")
+            + f", then 2 more steps {'finite' if finite else 'NOT FINITE'}")
+        if not (math.isfinite(metrics["psnr"]) and cloud.num_points != scene.num_points):
+            raise AssertionError(f"(c) {cloud.num_points} gaussians from {scene.num_points}, "
+                                 f"psnr {metrics['psnr']}")
+        if differ or not finite or int(restored["step"]) != 260:
+            raise AssertionError(f"(c) the checkpoint did not restore: {differ}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"[mesh] launches per rank: {json.dumps(launches)}")
+    log(f"[mesh] {card_line()}")
+    return launches
+
+
+def http_get(port: int, path: str, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_post(port: int, path: str, payload: dict, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=json.dumps(payload).encode(),
+                     headers=dict({"Content-Type": "application/json"}, **(headers or {})))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def web_phase(steps: int) -> None:
+    """Phase 13 (see the module docstring): the web console runs phase 11's
+    job and serves what it made."""
+    import shutil
+
+    from tpu_splat_torch.core.ply import load_ply
+    from tpu_splat_torch.web.server import start_background
+    from tpu_splat_torch.web.splat_format import cloud_to_splat_bytes
+
+    capture = os.path.join(OUT_DIR, "global_sfm", "capture.zip")
+    root = os.path.join(OUT_DIR, "web")
+    shutil.rmtree(root, ignore_errors=True)
+    httpd = start_background(root, port=0)
+    port = httpd.server_address[1]
+    uuid = "chip-smoke-web-job"
+    try:
+        job = {"uuid": uuid, "inputPath": capture, "sfm": {"softwareName": "glomap"},
+               "training": {"maxSteps": steps}}
+        codes = {"validateOnly": http_post(port, "/api/jobs", dict(job, validateOnly=True))[0],
+                 "malformed": http_post(port, "/api/jobs", {"uuid": "bad", "inputPath": "",
+                                                            "validateOnly": True})[0]}
+        if codes != {"validateOnly": 200, "malformed": 400}:
+            raise AssertionError(f"job validation answered {codes}")
+        t0 = time.time()
+        with launch_dir("web_launches") as ldir:
+            code, body = http_post(port, "/api/jobs", job)
+            if code != 202:
+                raise AssertionError(f"the job was not accepted: {code} {body}")
+            while True:
+                status, raw = http_get(port, f"/api/jobs/{uuid}")
+                rec = json.loads(raw) if status == 200 else {}
+                if rec.get("status") in ("Complete", "Error") and not rec.get("running"):
+                    break
+                if status == 200 and not rec.get("running") and rec.get("status") is None:
+                    raise AssertionError("the job process ended without a record")
+                if time.time() - t0 > 300:
+                    raise AssertionError("the web job did not complete within 300 s")
+                time.sleep(1.0)
+        job_s = time.time() - t0
+        job_log = os.path.join(root, "web_jobs", f"{uuid}.log")
+        if rec["status"] != "Complete":
+            raise AssertionError(f"the web job ended {rec['status']}: see {job_log}")
+        per_process = read_launch_dir(ldir)
+        check_rank_launches("web console job", per_process, 1)
+        ply_path = rec["artifacts"]["ply"]
+        status, served = http_get(port, f"/api/splat/{uuid}")
+        want = cloud_to_splat_bytes(load_ply(ply_path))
+        status_ply, served_ply = http_get(port, f"/artifacts/{uuid}/splat.ply")
+        with open(ply_path, "rb") as f:
+            ply_bytes = f.read()
+        refused = {"..": http_get(port, f"/artifacts/{uuid}/../splat.ply")[0],
+                   "cross-origin": http_post(port, "/api/jobs", dict(job, validateOnly=True),
+                                             {"Origin": "http://elsewhere.example"})[0]}
+        log(f"[web] job {uuid} (phase 11's capture, glomap, maxSteps {steps}) through the "
+            f"console: {rec['status']} in {job_s:.1f} s (its record: {rec.get('elapsed', 0):.1f} "
+            f"s; {int(rec['metrics']['num_gaussians'])} gaussians, psnr "
+            f"{rec['metrics']['psnr']:.3f}); /api/splat {len(served)} bytes, "
+            f"{'byte-identical' if served == want else 'DIFFERS'} to cloud_to_splat_bytes of "
+            f"its splat.ply; /artifacts splat.ply "
+            f"{'byte-identical' if served_ply == ply_bytes else 'DIFFERS'}; refused {refused}; "
+            f"launches {per_process}; the job's log: {os.path.relpath(job_log, ROOT)}")
+        if status != 200 or served != want:
+            raise AssertionError(f"/api/splat answered {status}, not the splat's buffer")
+        if status_ply != 200 or served_ply != ply_bytes:
+            raise AssertionError(f"/artifacts answered {status_ply}, not the .ply")
+        if refused != {"..": 400, "cross-origin": 403}:
+            raise AssertionError(f"the server did not refuse: {refused}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[web] {card_line()}")
+
+
 def main() -> int:
     import torch
 
@@ -1606,6 +1973,15 @@ def main() -> int:
     # 11. a global-SfM job on phase 7's capture
     global_sfm_phase(sfm_images, walk, OPTION_STEPS)
     del sfm_images
+    torch.cuda.empty_cache()
+
+    # 12. multi-card training on the one card: one NCCL rank, four gloo
+    # ranks, and train_splat's launcher on phase 5's scene
+    mesh_phase(dev, scene, imgs, metrics5["psnr"])
+    torch.cuda.empty_cache()
+
+    # 13. the web console runs phase 11's job and serves its splat
+    web_phase(OPTION_STEPS)
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

@@ -98,3 +98,30 @@ def test_forward_exit_after_first_of_several_chunks(cuda_device, count):
     assert float((ts_k - ts_p).abs().max()) <= 2e-5
     out_again, ts_again = cr.composite_fwd_cuda(packed, counts, TX)
     assert torch.equal(out_k, out_again) and torch.equal(ts_k, ts_again)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_card(cuda_device):
+    """With the inputs on the last card and cuda:0 current, both kernels run
+    on the inputs' card (a multi-card rank's case) and agree with the plain
+    versions. Needs two cards; skips with one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(2)
+    packed_np, counts_np = build_packed(rng, TX * TY, 2 * cr.CHUNK, TX)
+    packed = torch.from_numpy(packed_np).to(last)
+    counts = torch.from_numpy(counts_np).to(last)
+    out_k, ts_k = cr.composite_fwd_cuda(packed, counts, TX)
+    out_p, ts_p = cr.composite_tiles_plain(packed, counts, TX, TY)
+    assert out_k.device == last and torch.cuda.current_device() == 0
+    assert float((out_k[:, :5] - out_p[:, :5]).abs().max()) <= 2e-5
+    assert float((ts_k - ts_p).abs().max()) <= 2e-5
+    gout = torch.from_numpy(rng.standard_normal(out_p.shape).astype(np.float32)).to(last)
+    t_final = (1.0 - out_p[:, 3]).contiguous()
+    g_k = cr.composite_bwd_cuda(packed, counts, gout, ts_p, t_final, TX)
+    g_p = cr.composite_tiles_bwd_plain(packed, gout, ts_p, t_final, TX)
+    torch.cuda.synchronize(last)
+    assert g_k.device == last
+    assert float((g_k - g_p).abs().max()) / float(g_p.abs().max()) <= 5e-5

@@ -4,6 +4,7 @@ convert.py round-trips the training state."""
 
 import ast
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -50,6 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             "spherical/projections", "spherical/pipeline", "cli/generate_splat"}
     new |= {"sfm/pose_priors", "sfm/global_mapper", "export/measurement", "export/floorplan",
             "export/objects", "export/mesh", "export/native", "core/meshrender"}
+    new |= {"mesh/distributed", "mesh/trainer", "mesh/launch", "web/server", "web/splat_format"}
     assert {os.path.join("tpu_splat_torch", *m.split("/")) + ".py" for m in new} <= scanned
     assert len(files) > 40
     for path in files:
@@ -128,6 +130,47 @@ def test_entry_points_raise_without_gpu_unless_cpu_is_asked_for(tmp_path):
     assert undistort_batch(imgs, 10.0, 10.0, 16.0, 16.0, -0.1, device="cpu").shape == imgs.shape
     with pytest.raises(PipelineError, match="710"):  # past the device check, to the input
         run_job(job, device="cpu")
+
+
+def test_multi_card_launcher_and_served_jobs_default_to_cuda(tmp_path, monkeypatch, capsys):
+    """train_splat(distributed=True) and a rank's mesh device default to CUDA
+    and raise without a GPU; so does the job subprocess that `serve` starts,
+    unless the server was given the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for machines without one")
+    from tpu_splat_torch.cli.main import main as cli_main
+    from tpu_splat_torch.mesh.distributed import rank_device
+    from tpu_splat_torch.web import server as tserver
+
+    n, w, h = 8, 32, 32
+    pts = np.random.default_rng(0).uniform(-1, 1, (n, 3)).astype(np.float32)
+    imgs = np.zeros((2, h, w, 3), np.float32)
+    vms = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    intr = np.tile(np.array([[10.0, 10.0, 16.0, 16.0]], np.float32), (2, 1))
+    cams = Cameras(vms, intr[:, 0], intr[:, 1], intr[:, 2], intr[:, 3],
+                   np.zeros((2, 4), np.float32), w, h)
+    scene = SfMScene(cams, pts, np.zeros((n, 3)), np.zeros(n), np.ones(n), np.ones(2, bool))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipe.train_splat(scene, imgs, max_steps=1, distributed=True, world_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rank_device()
+    assert rank_device("cpu") == torch.device("cpu")
+
+    commands = []
+    monkeypatch.setattr(tserver.subprocess, "Popen",
+                        lambda cmd, **kw: commands.append(cmd) or SimpleNamespace(
+                            poll=lambda: 0))
+    for device in (None, "cpu"):
+        state = tserver._State(str(tmp_path / "store"), device)
+        code, _ = state.submit({"uuid": f"job-{device}", "inputPath": str(tmp_path / "none.zip")})
+        assert code == 202
+    no_device, cpu = commands
+    assert no_device[1:4] == ["-m", "tpu_splat_torch.cli.main", "run"] and len(no_device) == 5
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(no_device[3:])
+    assert cpu[5:] == ["--device", "cpu"]
+    assert cli_main(cpu[3:]) == 1  # past the device check: the capture does not exist
+    assert "FAILED" in capsys.readouterr().err
 
 
 def test_convert_round_trips_params_and_adam_state():

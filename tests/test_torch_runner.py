@@ -418,7 +418,11 @@ def test_generate_splat_writes_the_reference_job_and_runs_it(tmp_path, fakes, ca
 
 
 def test_multi_gpu_flag_trains_on_one_card_and_is_refused_with_two(tmp_path, fakes,
-                                                                   monkeypatch):
+                                                                   monkeypatch, caplog):
+    """enableMultiGpu dispatches as the reference's runner does: data-parallel
+    training (train_splat(distributed=True)) for a CUDA job with more than
+    one card, one card with the reference's log line otherwise. (Before the
+    multi-card port, a job with two cards was refused; it now trains on both.)"""
     calls, _ = fakes
     zip_path = seeded_zip(str(tmp_path / "capture.zip"))
     payload = {"inputPath": zip_path, "outputPath": str(tmp_path / "out"),
@@ -427,15 +431,28 @@ def test_multi_gpu_flag_trains_on_one_card_and_is_refused_with_two(tmp_path, fak
     res = trunner.run_job(tconfig.job_config_from_json(payload), log_fn=lines.append,
                           device="cpu")
     assert res.status == "Complete" and "train" in calls["port"]
+    assert calls["port"]["train"]["kw"]["distributed"] is False
     assert any("only one device present" in s for s in lines)
     assert any(s.startswith("sfm timers") for s in lines)  # the bridged pipeline logger
     assert logging.getLogger(trunner.LOGGER).handlers == []
-    monkeypatch.setattr(trunner, "resolve_device", lambda device: torch.device("cuda"))
+
+    # the dispatch itself, for a CUDA job with two cards and with one
+    cfg = tconfig.job_config_from_json(payload)
+    ctx = tcomp.PipelineContext(cfg=cfg, out_dir=str(tmp_path / "out2"), scene=object(),
+                                images=np.zeros((2, H, W, 3), np.float32),
+                                device=torch.device("cuda"))
+    for n_cards, distributed in ((2, True), (1, False)):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=trunner.LOGGER):
+            trunner._train(ctx)
+        kw = calls["port"]["train"]["kw"]
+        assert kw["distributed"] is distributed and kw["device"] == torch.device("cuda")
+        assert ("only one device present" in caplog.text) is not distributed
+    # a CPU job stays on one process, whatever the card count
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    payload["outputPath"] = str(tmp_path / "out2")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trunner.run_job(tconfig.job_config_from_json(payload))
-    assert not os.path.exists(tmp_path / "out2")
+    trunner._train(tcomp.PipelineContext(ctx, device=torch.device("cpu")))
+    assert calls["port"]["train"]["kw"]["distributed"] is False
 
 
 def test_cli_run_and_status(tmp_path, fakes, capsys):

@@ -4,14 +4,14 @@ Usage:
   tpu-splat-torch run job.json
   tpu-splat-torch run --input capture.mp4 --output out/ --max-steps 7000 --model splatfacto
   tpu-splat-torch convert splat.ply      # .ply <-> .spz via the native codec
+  tpu-splat-torch serve out/             # web console + in-browser viewer
   tpu-splat-torch status out/ <uuid>     # job store lookup
 
 (or `python -m tpu_splat_torch.cli.main ...`). Jobs run on the GPU; `--device
-cpu` runs one on the CPU. The job-JSON schema matches the reference toolbox
-(generate_splat.py:48-96), so existing job files drive this CLI unchanged.
-`convert` builds the repo's C++ codec (native/spz) with the C++ compiler at
-first use. `serve` of the JAX package's CLI is not ported yet (ROADMAP.md
-queue 1 item 15).
+cpu` runs one on the CPU (for `serve`, every job it runs). The job-JSON schema
+matches the reference toolbox (generate_splat.py:48-96), so existing job
+files drive this CLI unchanged. `convert` builds the repo's C++ codec
+(native/spz) with the C++ compiler at first use.
 """
 
 from __future__ import annotations
@@ -77,6 +77,14 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    from tpu_splat_torch.web.server import serve
+
+    serve(args.output, host=args.host, port=args.port, open_browser=not args.no_browser,
+          device=args.device)
+    return 0
+
+
 def cmd_status(args) -> int:
     from tpu_splat_torch.pipeline.runner import JobStore
 
@@ -106,6 +114,16 @@ def main(argv=None) -> int:
     pc = sub.add_parser("convert", help="convert .ply <-> .spz (native codec)")
     pc.add_argument("input")
     pc.set_defaults(fn=cmd_convert)
+
+    pv = sub.add_parser("serve", help="web console + splat viewer for an output directory")
+    pv.add_argument("output", nargs="?", default="output",
+                    help="output directory (job store root)")
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.add_argument("--port", type=int, default=8085)
+    pv.add_argument("--no-browser", action="store_true")
+    pv.add_argument("--device", default=None,
+                    help="torch device of the jobs it runs (default: cuda)")
+    pv.set_defaults(fn=cmd_serve)
 
     ps = sub.add_parser("status", help="look up job status in the job store")
     ps.add_argument("output", help="output directory used by the job")

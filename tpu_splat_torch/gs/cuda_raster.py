@@ -12,14 +12,21 @@ alpha = min(op * exp(-max(sigma, 0)), 0.999) zeroed where sigma < 0 or the raw
 alpha is below 1/255, and a TILE-wide exit checked once before each chunk
 (max T <= 1e-4), with the sweep bounded by the tile's pair count.
 
-On a CUDA tensor the wrappers launch the kernels in csrc/composite.cu or raise;
-the plain versions run only for tensors on the CPU.
+On a CUDA tensor the wrappers launch the kernels in csrc/composite.cu, on that
+tensor's card, or raise; the plain versions run only for tensors on the CPU.
+
+With TPU_SPLAT_LAUNCH_DIR set when this module is imported, the process writes
+its launch counts to <dir>/launches_<pid>.json as it exits, so a caller can
+read the counts of the ranks and job processes it started.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
+import json
+import os
 from typing import Tuple
 
 import torch
@@ -41,6 +48,18 @@ LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+LAUNCH_DIR_ENV = "TPU_SPLAT_LAUNCH_DIR"
+
+
+def _write_launches(directory: str) -> None:
+    with open(os.path.join(directory, f"launches_{os.getpid()}.json"), "w") as f:
+        json.dump(LAUNCHES, f)
+
+
+if os.environ.get(LAUNCH_DIR_ENV):
+    atexit.register(_write_launches, os.environ[LAUNCH_DIR_ENV])
 
 
 # ---------------------------------------------------------------- plain versions
@@ -178,9 +197,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
+def _check(name: str, x: torch.Tensor, dtype, shape, device=None) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} must be on {device}, got {x.device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -201,13 +222,15 @@ def composite_fwd_cuda(packed: torch.Tensor, counts: torch.Tensor,
     if c != C_PACK or k % CHUNK:
         raise ValueError(f"packed must be (16, T, K) with K a multiple of {CHUNK}")
     _check("packed", packed, torch.float32, (C_PACK, t_total, k))
-    _check("counts", counts, torch.int32, (t_total,))
+    _check("counts", counts, torch.int32, (t_total,), packed.device)
     out = torch.empty((t_total, 8, P), dtype=torch.float32, device=packed.device)
     tstart = torch.empty((t_total, (k // CHUNK) * P), dtype=torch.float32,
                          device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = _lib().tsp_composite_fwd(packed.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                                   tstart.data_ptr(), t_total, k, tx, stream)
+    # the library launches on the thread's current card: make it the tensor's
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = _lib().tsp_composite_fwd(packed.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                                       tstart.data_ptr(), t_total, k, tx, stream)
     _launch_check(err, "composite_fwd")
     LAUNCHES["composite_fwd"] += 1
     return out, tstart
@@ -222,15 +245,16 @@ def composite_bwd_cuda(packed: torch.Tensor, counts: torch.Tensor, gout: torch.T
     if c != C_PACK or k % CHUNK:
         raise ValueError(f"packed must be (16, T, K) with K a multiple of {CHUNK}")
     _check("packed", packed, torch.float32, (C_PACK, t_total, k))
-    _check("counts", counts, torch.int32, (t_total,))
-    _check("gout", gout, torch.float32, (t_total, 8, P))
-    _check("tstart", tstart, torch.float32, (t_total, (k // CHUNK) * P))
-    _check("t_final", t_final, torch.float32, (t_total, P))
+    _check("counts", counts, torch.int32, (t_total,), packed.device)
+    _check("gout", gout, torch.float32, (t_total, 8, P), packed.device)
+    _check("tstart", tstart, torch.float32, (t_total, (k // CHUNK) * P), packed.device)
+    _check("t_final", t_final, torch.float32, (t_total, P), packed.device)
     dpacked = torch.empty_like(packed)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = _lib().tsp_composite_bwd(packed.data_ptr(), counts.data_ptr(), gout.data_ptr(),
-                                   tstart.data_ptr(), t_final.data_ptr(), dpacked.data_ptr(),
-                                   t_total, k, tx, stream)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = _lib().tsp_composite_bwd(packed.data_ptr(), counts.data_ptr(), gout.data_ptr(),
+                                       tstart.data_ptr(), t_final.data_ptr(),
+                                       dpacked.data_ptr(), t_total, k, tx, stream)
     _launch_check(err, "composite_bwd")
     LAUNCHES["composite_bwd"] += 1
     return dpacked

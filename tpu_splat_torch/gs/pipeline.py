@@ -1,7 +1,8 @@
 """Bridge from SfM output to 3DGS training (the port of tpu_splat/gs/pipeline.py):
 builds training data from an SfMScene, applies the image-count downscale
-policy, sizes the capacity, runs the Trainer and returns the trained
-GaussianCloud with held-out PSNR. Multi-device training is not ported yet."""
+policy, sizes the capacity, runs the Trainer (or, with distributed=True, one
+DistributedTrainer rank per card) and returns the trained GaussianCloud with
+held-out PSNR."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from tpu_splat_torch.core.device import resolve_device
 from tpu_splat_torch.core.types import GaussianCloud, SfMScene, to_numpy
 from tpu_splat_torch.gs.losses import psnr
-from tpu_splat_torch.gs.params import init_params_from_points
+from tpu_splat_torch.gs.params import init_params_from_points, params_to_cloud
 from tpu_splat_torch.gs.render import render_view
 from tpu_splat_torch.gs.trainer import TrainConfig, Trainer
 
@@ -91,10 +92,17 @@ def train_splat(
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
     checkpoint_every: int = 0,
+    distributed: bool = False,
     log_fn=None,
     device=None,
+    world_size: Optional[int] = None,
 ) -> Tuple[GaussianCloud, Dict[str, float]]:
-    """Train a splat from SfM output. images must align with scene.cameras."""
+    """Train a splat from SfM output. images must align with scene.cameras.
+
+    distributed=True trains data-parallel on one rank per card (NCCL; every
+    card unless world_size says fewer), spawned from this process, with the
+    step schedule shrunk by the batch (scale_schedule); on the CPU it runs
+    world_size gloo ranks. Evaluation runs here, on `device`."""
     dev = resolve_device(device)
     n_img = images.shape[0]
     factor = downscale_factor or auto_downscale_factor(
@@ -114,8 +122,9 @@ def train_splat(
 
     # room to densify ~16x from the sparse init, power-of-two sized
     capacity = 1 << int(math.ceil(math.log2(max(len(pts) * 16, 4096))))
-    params = init_params_from_points(pts, colors, capacity=capacity,
-                                     sh_degree=sh_degree, device=dev)
+    # the ranks get their parameters from the host
+    params = init_params_from_points(pts, colors, capacity=capacity, sh_degree=sh_degree,
+                                     device="cpu" if distributed else dev)
 
     hold = eval_split(n_img)
     train_idx = np.setdiff1d(np.arange(n_img), hold)
@@ -123,28 +132,38 @@ def train_splat(
     if checkpoint_every:
         cfg = replace(cfg, checkpoint_every=checkpoint_every)
 
-    trainer = Trainer(
-        params, imgs[train_idx], viewmats[train_idx], intrin[train_idx],
-        scene_scale=scene_scale, cfg=cfg, seed=seed,
-        masks=masks[train_idx] if masks is not None else None, log_fn=log_fn, device=dev,
-    )
-    if checkpoint_dir:
-        trainer.checkpoint_dir = checkpoint_dir
-        if resume:
-            try:
-                trainer.load_checkpoint(checkpoint_dir)
-            except FileNotFoundError:
-                pass
-            except (ValueError, RuntimeError, KeyError) as e:  # incompatible: restart
-                if log_fn:
-                    log_fn(f"checkpoint restore failed ({e}); training from scratch")
-    trainer.run(max_steps - trainer.step)
+    t_masks = masks[train_idx] if masks is not None else None
     # train views are evaluated with their refined poses, held-out views
     # keep their SfM poses
     eval_viewmats = viewmats.copy()
-    eval_viewmats[train_idx] = trainer.adjusted_viewmats()
+    if distributed:
+        from tpu_splat_torch.mesh.trainer import train_distributed
 
-    cloud = trainer.cloud()
+        host_params, eval_viewmats[train_idx] = train_distributed(
+            params, imgs[train_idx], t_masks, viewmats[train_idx], intrin[train_idx],
+            scene_scale, cfg, seed, checkpoint_dir, resume, log_fn, dev, world_size)
+        eval_params = {k: v.to(dev) for k, v in host_params.items()}
+        cloud = params_to_cloud(host_params)
+    else:
+        trainer = Trainer(
+            params, imgs[train_idx], viewmats[train_idx], intrin[train_idx],
+            scene_scale=scene_scale, cfg=cfg, seed=seed, masks=t_masks, log_fn=log_fn,
+            device=dev,
+        )
+        if checkpoint_dir:
+            trainer.checkpoint_dir = checkpoint_dir
+            if resume:
+                try:
+                    trainer.load_checkpoint(checkpoint_dir)
+                except FileNotFoundError:
+                    pass
+                except (ValueError, RuntimeError, KeyError) as e:  # incompatible: restart
+                    if log_fn:
+                        log_fn(f"checkpoint restore failed ({e}); training from scratch")
+        trainer.run(max_steps - trainer.step)
+        eval_viewmats[train_idx] = trainer.adjusted_viewmats()
+        eval_params = trainer.params
+        cloud = trainer.cloud()
     metrics = {
         "num_gaussians": float(cloud.num_points),
         "train_steps": float(max_steps),
@@ -152,12 +171,12 @@ def train_splat(
     }
     deg = min(sh_degree, cloud.sh_degree)
     if len(hold):
-        metrics["psnr"] = _psnr_over_views(trainer.params, eval_viewmats, intrin, imgs,
+        metrics["psnr"] = _psnr_over_views(eval_params, eval_viewmats, intrin, imgs,
                                            hold, deg, cfg, dev)
         metrics["eval_views"] = float(len(hold))
     else:  # too small for a held-out split: report train-view PSNR
         idx = range(0, len(train_idx), max(len(train_idx) // 4, 1))
-        metrics["psnr"] = _psnr_over_views(trainer.params, eval_viewmats, intrin, imgs,
+        metrics["psnr"] = _psnr_over_views(eval_params, eval_viewmats, intrin, imgs,
                                            [train_idx[i] for i in idx], deg, cfg, dev)
         metrics["eval_views"] = 0.0
     return cloud, metrics

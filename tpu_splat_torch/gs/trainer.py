@@ -37,6 +37,7 @@ from tpu_splat_torch.gs.strategy import (
 from tpu_splat_torch.sfm.geometry import exp_so3
 
 CAM_B1, CAM_B2, CAM_EPS = 0.9, 0.999, 1e-8
+PROFILE_ENV = "TPU_SPLAT_PROFILE"  # =<dir>: trace steps 20-40 into <dir>
 
 
 @dataclass(frozen=True)
@@ -250,6 +251,19 @@ def train_step(
     return new_params, adam_state, dstate, metrics
 
 
+def checkpoint_path(directory: str, step: Optional[int] = None):
+    """(path, step) of the given-step checkpoint under `directory`, or of the
+    latest one; raises FileNotFoundError when there is none."""
+    root = os.path.abspath(directory)
+    if step is None:
+        steps = sorted(int(n[len("step_"):-len(".pt")]) for n in os.listdir(root)
+                       if n.startswith("step_") and n.endswith(".pt"))
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {root}")
+        step = steps[-1]
+    return os.path.join(root, f"step_{step:08d}.pt"), step
+
+
 class Trainer:
     """Host-side training driver: camera sampling, refine scheduling, growth."""
 
@@ -339,7 +353,9 @@ class Trainer:
     def run(self, steps: Optional[int] = None) -> Params:
         cfg = self.cfg
         total = steps if steps is not None else cfg.max_steps
-        if cfg.strategy == "mcmc":
+        # the stepwise loop serves the profiling hook and MCMC, whose
+        # exploration noise is a host event on every step
+        if os.environ.get(PROFILE_ENV, "") or cfg.strategy == "mcmc":
             return self._run_stepwise(total)
         n_views = self.images.shape[0]
         rng = np.random.default_rng(42)
@@ -369,28 +385,56 @@ class Trainer:
         return self.params
 
     def _run_stepwise(self, total: int) -> Params:
-        """Per-step loop for the MCMC strategy, whose exploration noise is a
-        host event on every step."""
+        """Per-step loop. With TPU_SPLAT_PROFILE=<dir> it writes a
+        torch.profiler trace of steps 20-40 into <dir> (TensorBoard's format;
+        the reference writes an xprof trace of the same steps)."""
         cfg = self.cfg
         n_views = self.images.shape[0]
         rng = np.random.default_rng(42)
         t0 = time.time()
         self._stage()
+        profile_dir = os.environ.get(PROFILE_ENV, "")
+        prof = None
         for _ in range(total):
+            if profile_dir and self.step == 20 and prof is None:
+                prof = self._start_profile(profile_dir)
+            elif prof is not None and self.step >= 40:
+                self._stop_profile(prof, profile_dir)
+                prof = None
             view = int(rng.integers(n_views))
             metrics = self._train_one(view, effective_cfg(cfg, self.step),
                                       self._active_sh_degree())
             self.step += 1
             if self.checkpoint_dir and self.step % cfg.checkpoint_every == 0:
                 self.save_checkpoint(self.checkpoint_dir)
-            self._mcmc_refine()
+            if cfg.strategy == "default":
+                self._default_refine()
+            else:
+                self._mcmc_refine()
             if self.step % cfg.eval_every == 0 or self.step == total:
                 self.log(
                     f"step {self.step}: loss={float(metrics['loss']):.4f} "
                     f"psnr={float(metrics['psnr']):.2f} alive={num_alive(self.params)} "
                     f"({self.step / (time.time() - t0):.1f} it/s)"
                 )
+        if prof is not None:  # the run ended inside the trace window
+            self._stop_profile(prof, profile_dir)
         return self.params
+
+    def _start_profile(self, directory: str):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(directory))
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, directory: str):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        self.log(f"profiler trace (steps 20-40) written to {directory}")
 
     def _default_refine(self):
         cfg = self.cfg
@@ -489,15 +533,8 @@ class Trainer:
         """Restore the latest (or given-step) checkpoint and resume from it.
         A checkpoint saved after capacity growth grows the live state first; a
         larger live capacity than the checkpoint's is rejected."""
-        root = os.path.abspath(directory)
-        if step is None:
-            steps = sorted(int(n[len("step_"):-len(".pt")]) for n in os.listdir(root)
-                           if n.startswith("step_") and n.endswith(".pt"))
-            if not steps:
-                raise FileNotFoundError(f"no checkpoints under {root}")
-            step = steps[-1]
-        path = os.path.join(root, f"step_{step:08d}.pt")
-        meta_path = os.path.join(root, f"meta_{step:08d}.json")
+        path, step = checkpoint_path(directory, step)
+        meta_path = os.path.join(os.path.dirname(path), f"meta_{step:08d}.json")
         if os.path.exists(meta_path):
             with open(meta_path) as f:
                 meta = json.load(f)

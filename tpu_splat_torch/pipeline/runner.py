@@ -14,10 +14,10 @@ against the fixed prior poses.
 
 The matting nets, the 360-degree expansion, SfM (incremental, global or
 with pose priors), undistortion, training and the extras (mesh, plane fits)
-run on the job's device (CUDA unless the caller asks for the CPU).
-Multi-device training is not ported yet: with enableMultiGpu on a machine
-with more than one card, run_job raises NotImplementedError before any stage
-runs, naming its ROADMAP item.
+run on the job's device (CUDA unless the caller asks for the CPU). With
+enableMultiGpu on a CUDA job and more than one card, training runs
+data-parallel on every card (train_splat(distributed=True)); with one card
+it logs so and trains on it.
 
 Quality gates mirror main.py:2031-2087 (frames >= 10 & points >= 50 for
 splatfacto, >= 3/>= 3 otherwise); the delivery orientation dance mirrors
@@ -121,19 +121,12 @@ def _bridge_pipeline_logs(log_fn):
 def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
     """Execute a reconstruction job end to end on `device` (CUDA unless the
     CPU is asked for). Returns the JobResult; raises PipelineError with a
-    taxonomy code on failure (after recording it), and NotImplementedError,
-    before any stage, when the job asks for multi-card training on a machine
-    with more than one card (not ported yet)."""
+    taxonomy code on failure (after recording it)."""
     cfg.validate()
     dev = resolve_device(device)
     out_dir = os.path.abspath(cfg.output_path)
     pipe = Pipeline(name="3DGS-Pipeline", uuid=cfg.uuid, log_fn=log_fn)
     _register_components(pipe, cfg)
-    if cfg.training.enable and cfg.training.enable_multi_gpu and dev.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "Train-Stage1 with enableMultiGpu on more than one card is not ported yet: "
-            "ROADMAP.md queue 1 item 14 (multi-device)")
 
     os.makedirs(out_dir, exist_ok=True)
     store = JobStore(out_dir)
@@ -696,10 +689,14 @@ def _train(ctx: PipelineContext):
     from tpu_splat_torch.gs.pipeline import train_splat
 
     cfg: JobConfig = ctx["cfg"]
+    # Multi-card dispatch (the gsplat multi-GPU path, main.py:1317-1347):
+    # enableMultiGpu + a CUDA job + more than one card -> data-parallel ranks.
+    distributed = False
     if cfg.training.enable_multi_gpu:
-        # run_job refused the job if it had more than one card to train on
-        pipe_logger(ctx)("enableMultiGpu set but only one device present; "
-                         "training single-chip")
+        distributed = ctx["device"].type == "cuda" and torch.cuda.device_count() > 1
+        if not distributed:
+            pipe_logger(ctx)("enableMultiGpu set but only one device present; "
+                             "training single-chip")
     cloud, metrics = train_splat(
         ctx.require("scene"),
         ctx.require("images"),
@@ -709,6 +706,7 @@ def _train(ctx: PipelineContext):
         masks=ctx.get("masks"),
         checkpoint_dir=os.path.join(ctx["out_dir"], "checkpoints"),
         resume=True,
+        distributed=distributed,
         log_fn=pipe_logger(ctx),
         device=ctx["device"],
     )

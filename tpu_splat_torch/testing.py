@@ -382,3 +382,126 @@ def seeded_u2net_state_dict(seed: int = 0, device="cpu") -> dict:
                 m.weight /= spread[m]
                 m.bias /= spread[m]
     return {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def _host_tree(tree: dict, prefix: str = "") -> dict:
+    """Tensors -> numpy (bf16 widened to f32), keys prefixed."""
+    import torch
+
+    return {prefix + k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+            for k, v in tree.items()}
+
+
+def step_state(params: dict, adam, dstate) -> dict:
+    """A training state (parameters, Adam moments, densify accumulators) as
+    one flat dict of numpy arrays: "param means", "mu means", ...,
+    "densify grad_accum"."""
+    out = _host_tree(params, "param ")
+    out.update(_host_tree(adam.mu, "mu "))
+    out.update(_host_tree(adam.nu, "nu "))
+    out.update(_host_tree(dstate._asdict(), "densify "))
+    return out
+
+
+def full_trainer_state(trainer) -> dict:
+    """A DistributedTrainer's full state as numpy (a collective: every rank
+    calls it)."""
+    params, adam, dstate = trainer._full_state()
+    out = step_state(params, adam, dstate)
+    out.update({"count": adam.count.cpu().numpy(), "cam_deltas": trainer.cam_deltas.cpu().numpy(),
+                "step": np.asarray(trainer.step)})
+    return out
+
+
+def mesh_checks(rank: int, device, log, setup: dict) -> dict:
+    """One rank of the distributed checks that tests/test_torch_distributed.py
+    and chip_smoke.py (phase 12) run through mesh.launch.spawn_ranks.
+
+    setup: "mesh" (n_data, n_gauss); "params" (full numpy arrays);
+    "scene_scale"; "batch", a dict of numpy images (B,H,W,3), viewmats,
+    intrins, masks (B,H,W) and cam_deltas (B,6); "runs", a list of (name,
+    TrainConfig, use_masks, n_steps): each run starts from the initial state
+    and takes n_steps steps on the batch (step i with key i); optionally
+    "trainer": {"cfg", "images", "viewmats", "intrins", "checkpoint_dir"}, a
+    DistributedTrainer run through step 2 (where the config refines), a
+    checkpoint at step 3, step 4, and a second trainer restored from the
+    checkpoint that takes the same step 4. "full_from": the ranks that
+    return full states (default all).
+
+    Returns the rank's launch counts, shard row counts, and for each run its
+    losses, seconds per step, peak memory and (on the "full_from" ranks) the
+    full gathered state after the run."""
+    import time
+
+    import torch
+
+    from tpu_splat_torch.gs import cuda_raster as cr
+    from tpu_splat_torch.gs.optim import AdamState, adam_init
+    from tpu_splat_torch.gs.strategy import DensifyState, densify_state_init
+    from tpu_splat_torch.mesh.distributed import (make_distributed_train_step, make_mesh,
+                                                  shard_params)
+    from tpu_splat_torch.mesh.trainer import DistributedTrainer
+
+    n_data, n_gauss = setup["mesh"]
+    mesh = make_mesh(n_data, n_gauss, device=device)
+    full_from = setup.get("full_from", range(n_data * n_gauss))
+    b = setup["batch"]
+    batch = {k: torch.as_tensor(b[k], dtype=torch.float32, device=device)
+             for k in ("images", "viewmats", "masks", "cam_deltas")}
+    h, w = b["images"].shape[1:3]
+    cr.reset_launch_counts()
+    out = {"rank": rank, "runs": {}}
+    for name, cfg, use_masks, n_steps in setup["runs"]:
+        params = shard_params(setup["params"], mesh)
+        adam = adam_init(params)
+        dstate = densify_state_init(params["means"].shape[0], device)
+        out["shard_rows"] = {k: int(v.shape[0]) for k, v in params.items()}
+        step_fn = make_distributed_train_step(mesh, cfg, w, h, cfg.sh_degree,
+                                              setup["scene_scale"], use_masks=use_masks)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        run = {"loss": [], "cam_grads": []}
+        t0 = time.time()
+        for i in range(n_steps):
+            params, adam, dstate, metrics, cam_grads = step_fn(
+                params, adam, dstate, batch["images"], batch["viewmats"], b["intrins"],
+                batch["masks"], batch["cam_deltas"], i, i)
+            run["loss"].append(float(metrics["loss"]))  # waits for the step
+            run["cam_grads"].append(cam_grads.cpu().numpy())
+        run["s_per_step"] = (time.time() - t0) / n_steps
+        run["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30
+                           if device.type == "cuda" else None)
+        def gather(tree):
+            return {k: mesh.all_gather(v, "gauss") for k, v in tree.items()}
+
+        full = (gather(params), AdamState(gather(adam.mu), gather(adam.nu), adam.count),
+                DensifyState(**gather(dstate._asdict())))
+        if rank in full_from:
+            run["state"] = step_state(*full)
+        out["runs"][name] = run
+        del params, adam, dstate, full
+
+    tr_setup = setup.get("trainer")
+    if tr_setup:
+        def trainer():
+            return DistributedTrainer(setup["params"], tr_setup["images"], tr_setup["viewmats"],
+                                      tr_setup["intrins"], setup["scene_scale"],
+                                      tr_setup["cfg"], mesh=mesh, seed=0)
+
+        first = trainer()
+        first.checkpoint_dir = tr_setup["checkpoint_dir"]
+        first.run(2)  # a refine and an opacity reset at step 2
+        states = {"step 2": full_trainer_state(first)}
+        first.run(1)  # the checkpoint at step 3
+        states["step 3"] = full_trainer_state(first)
+        first.run(1)
+        states["step 4"] = full_trainer_state(first)
+        second = trainer()
+        second.load_checkpoint(tr_setup["checkpoint_dir"])
+        states["restored"] = full_trainer_state(second)
+        second.run(1)
+        states["resumed"] = full_trainer_state(second)
+        out["trainer"] = states
+    out["launches"] = dict(cr.LAUNCHES)
+    return out
