@@ -127,14 +127,29 @@ the JAX package. Phases, each of which raises on failure:
    (300 s at most), and serves /api/splat/<uuid> byte-identical to
    cloud_to_splat_bytes of the job's splat.ply and /artifacts/<uuid>/
    splat.ply byte-identical to the file; a `..` segment gets 400 and a
-   cross-origin POST 403. Prints the job's seconds.
+   cross-origin POST 403. Prints the job's seconds;
+14. MatNet training at full width (the port of scripts/train_matnet.py: batch
+   16, 256x256, the full channel plan, lr 3e-4, seed 0): the first 3 steps
+   on the card against the port on the CPU on the same batches (loss and
+   soft IoU within 1e-4 relative; step 1's gradients, computed once more in
+   f64 on each device, within 1e-4 of each tensor's largest entry, and in
+   f32 within 1e-3; the parameters after 3 steps within 1e-3, the share
+   within 1e-5 printed), two 10-step runs from one seed on one set of
+   batches bit-identical in every parameter and moment, then train_matnet
+   for 120 steps (`MATNET_STEPS`; the cosine decay spans them), whose mean
+   loss over the last 20 steps must fall below that of the first 20 and
+   whose float16 npz must hold the bundled file's keys and shapes and run
+   through load_matnet and matnet_saliency. Prints ms a step on the card,
+   host seconds a step making batches, and the held-out IoU of the trained
+   and of the bundled weights.
 
 The launch counters are zeroed just before each of the training paths
 (phases 4, 5, 7, 8, 9, 10, 11, 12 and 13) and read just after it; both
 kernels must have launched in each, and in every rank or job process of
 phases 12 and 13 (those start counting from 0, and the processes that
 phases 12(c) and 13 start write their counts to TPU_SPLAT_LAUNCH_DIR as they
-exit). SfM, the matting nets and the extras hold no hand-written kernel.
+exit). SfM, the matting nets (their training too) and the extras hold no
+hand-written kernel.
 The line before the last is the {"kernels": [...]} record, with phase 4's
 launches; the last line is {"ok": true, "device": {...}}.
 """
@@ -178,6 +193,8 @@ WALK_SPAN = 5.0  # testing.walk_viewmats' default: phase 6's capture
 SFM_FOCAL = 1100.0  # phase 6's true focal
 JOB_STEPS = 600  # phase 7: past the first refine pass, at step 500
 OPTION_STEPS = 300  # phases 8-11: the jobs' maxSteps, lowered from the preset's
+MATNET_STEPS = 120  # phase 14: train_matnet's steps, of the script's 3000
+MATNET_REPEAT_STEPS = 10  # phase 14: the two runs that must agree bit for bit
 # phase 10: the walk's eyes sit 1.0 above testing.textured_scene's ground (y 0.3
 # against 1.3, +y down): with world units taken as metres, a tripod of 1.0 m
 TRIPOD_HEIGHT_M = 1.0
@@ -354,10 +371,11 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
     return res
 
 
-def profile_steps(run_step, first: int, n: int, step_ms: float) -> None:
+def profile_steps(run_step, first: int, n: int, step_ms: float, tag: str = "profile") -> float:
     """Device time by kernel over n steps (torch.profiler), per step, and the
     device's busy share of the unprofiled step time `step_ms` (the profiler's
-    own host overhead stretches the wall-clock it sees)."""
+    own host overhead stretches the wall-clock it sees). Returns the busy ms
+    a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,13 +389,14 @@ def profile_steps(run_step, first: int, n: int, step_ms: float) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    log(f"[profile] {n} steps: device busy {busy_ms:.2f} ms/step = "
+    log(f"[{tag}] {n} steps: device busy {busy_ms:.2f} ms/step = "
         f"{100 * busy_ms / step_ms:.1f}% of the {step_ms:.2f} ms step (idle "
         f"{100 * (1 - busy_ms / step_ms):.1f}%); {len(kernels)} kernel names; "
         f"{wall_ms:.1f} ms/step wall with the profiler on")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"[profile] {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+        log(f"[{tag}] {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
             f"{e.count / n:6.1f}x  {e.key[:90]}")
+    return busy_ms
 
 
 def layer_times(params, viewmat, intrin, image, width, height, k) -> dict:
@@ -1805,6 +1824,141 @@ def web_phase(steps: int) -> None:
     log(f"[web] {card_line()}")
 
 
+def matnet_grads(seed: int, device, dtype, imgs, masks) -> dict:
+    """MatNet's loss gradients at init_params(seed) on one batch, computed
+    in `dtype` on `device`, as f64 CPU tensors by parameter name."""
+    import torch
+
+    from tpu_splat_torch.matting import train as mtrain
+
+    net = mtrain.init_train_state(seed, device).net.to(dtype)
+    x = torch.from_numpy(imgs).to(device, dtype).permute(0, 3, 1, 2).contiguous()
+    with mtrain.deterministic_cudnn():
+        loss, _ = mtrain.matnet_loss(net(x), torch.from_numpy(masks).to(device, dtype))
+        loss.backward()
+    return {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+
+
+def matnet_train_phase(dev) -> None:
+    """Phase 14 (see the module docstring): MatNet training at full width."""
+    import torch
+
+    from tpu_splat_torch.matting import train as mtrain
+    from tpu_splat_torch.matting.matnet import (bundled_weights_path, load_matnet,
+                                                matnet_params, matnet_saliency)
+    from tpu_splat_torch.matting.synthdata import make_batch
+
+    batch, lr, seed = 16, 3e-4, 0
+    rng = np.random.default_rng(seed + 1)  # train_matnet's own first batches
+    t0 = time.perf_counter()
+    batches = [make_batch(rng, batch) for _ in range(MATNET_REPEAT_STEPS)]
+    batch_s = (time.perf_counter() - t0) / len(batches)
+
+    # the first 3 steps on the card against the CPU, on the same batches
+    states = {"card": mtrain.init_train_state(seed, dev),
+              "cpu": mtrain.init_train_state(seed, "cpu")}
+    errs = []
+    for i, (imgs, masks) in enumerate(batches[:3], 1):
+        out = {d: [float(v) for v in mtrain.train_step(st, imgs, masks, i, lr, MATNET_STEPS)]
+               for d, st in states.items()}
+        errs.append([abs(out["card"][j] - out["cpu"][j]) / abs(out["cpu"][j]) for j in (0, 1)])
+        if i == 1:
+            grads = {d: {k: p.grad.double().cpu() for k, p in st.net.named_parameters()}
+                     for d, st in states.items()}
+    params = {d: matnet_params(st.net) for d, st in states.items()}
+    del states
+    diffs = np.concatenate([np.abs(params["card"][k] - v).ravel()
+                            for k, v in params["cpu"].items()])
+    # step 1's gradients once more in f64 on each device: the exact yardstick
+    grads64 = {d: matnet_grads(seed, dv, torch.float64, *batches[0])
+               for d, dv in (("card", dev), ("cpu", "cpu"))}
+
+    def grad_gap(a, b):  # the largest over tensors of max |a - b| / max |b|
+        return max(float((a[k] - g).abs().max() / g.abs().max()) for k, g in b.items())
+
+    gap32, gap64 = grad_gap(grads["card"], grads["cpu"]), grad_gap(grads64["card"],
+                                                                   grads64["cpu"])
+    exact = {d: grad_gap(grads[d], grads64["cpu"]) for d in grads}
+    log(f"[matnet-train] batch {batch}, 256x256, steps 1-3, card against CPU: loss "
+        f"{', '.join(f'{e[0]:.2e}' for e in errs)} and soft IoU "
+        f"{', '.join(f'{e[1]:.2e}' for e in errs)} relative; step 1's gradients "
+        f"{gap64:.2e} of each tensor's max in f64, {gap32:.2e} in f32 (f32 against f64: card "
+        f"{exact['card']:.2e}, CPU {exact['cpu']:.2e}); parameters after 3 steps max abs "
+        f"{diffs.max():.3e}, {np.mean(diffs <= 1e-5):.4%} of {diffs.size} within 1e-5")
+    # At this size each device's f32 gradients sit 1e-4 or more of a tensor's
+    # max from the exact ones (the biases of the convolutions before each
+    # group norm get small residuals of sums over a million terms; 1.02e-4 on
+    # the CPU and 3.09e-4 on the card on the H100's machine): two f32
+    # results cannot be held within 1e-4 of each other. So the CPU test's
+    # 1e-4 holds the f64 gradients and the f32 losses, and 1e-3 the f32
+    # gradients and the parameters.
+    if not (max(max(e) for e in errs) <= 1e-4 and gap64 <= 1e-4 and gap32 <= 1e-3
+            and diffs.max() <= 1e-3):
+        raise AssertionError("MatNet training on the card differs from the CPU")
+
+    # two runs of MATNET_REPEAT_STEPS steps from one seed on the same batches
+    on_card = [(torch.from_numpy(i).to(dev), torch.from_numpy(m).to(dev)) for i, m in batches]
+    runs, run_ms = [], []
+    for _ in range(2):
+        st = mtrain.init_train_state(seed, dev)
+        torch.cuda.synchronize()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for i, (imgs, masks) in enumerate(on_card, 1):
+            mtrain.train_step(st, imgs, masks, i, lr, MATNET_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        run_ms.append(ev0.elapsed_time(ev1) / len(on_card))
+        runs.append({**{k: p.detach().clone() for k, p in st.net.named_parameters()},
+                     **{f"m.{k}": t for k, t in st.m.items()},
+                     **{f"v.{k}": t for k, t in st.v.items()}})
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    log(f"[matnet-train] two {MATNET_REPEAT_STEPS}-step runs from seed {seed}: "
+        + ("bit-identical" if not differ else f"{len(differ)} tensors differ: {differ}")
+        + f" over {len(runs[0])} tensors (parameters and both moments); "
+        f"{run_ms[0]:.2f} and {run_ms[1]:.2f} ms a step with the batches on the card")
+    if differ:
+        raise AssertionError(f"two identical MatNet training runs differ: {differ}")
+    busy_ms = profile_steps(lambda i: mtrain.train_step(st, *on_card[i % len(on_card)], i, lr,
+                                                        MATNET_STEPS),
+                            len(on_card) + 1, 3, run_ms[1], "matnet-profile")
+    del runs, on_card, st
+
+    # the script's run, cut to MATNET_STEPS steps
+    path = os.path.join(OUT_DIR, "matnet_trained.npz")
+    res = mtrain.train_matnet(MATNET_STEPS, batch, lr, seed, out=path, device=dev,
+                              log_fn=lambda s: log(f"[matnet-train] {s}"))
+    losses = res["losses"]
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    step_ms = float(np.median(res["step_ms"]))
+    wall_ms = res["seconds"] * 1e3 / MATNET_STEPS
+    log(f"[matnet-train] train_matnet {MATNET_STEPS} steps in {res['seconds']:.1f} s: mean loss "
+        f"{first:.4f} over steps 1-20, {last:.4f} over the last 20; card {step_ms:.2f} ms a "
+        f"step (median of CUDA events around each step), host {res['data_s'] / MATNET_STEPS:.3f} "
+        f"s a step making batches ({batch_s:.3f} s for the first {MATNET_REPEAT_STEPS}), "
+        f"{wall_ms:.1f} ms a step of wall-clock: the device is idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}% of it (busy {busy_ms:.2f} ms a step)")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"MatNet's loss did not fall: {first:.4f} -> {last:.4f}")
+    with np.load(path) as z, np.load(bundled_weights_path()) as zb:
+        layout = {k: (z[k].shape, z[k].dtype) for k in z.files}
+        want = {k: (zb[k].shape, zb[k].dtype) for k in zb.files}
+    if layout != want:
+        raise AssertionError(f"the trained npz's layout differs from the bundled file's: "
+                             f"{sorted(set(layout.items()) ^ set(want.items()))}")
+    load_matnet(path, dev)
+    imgs = batches[0][0][:4]
+    sal = matnet_saliency(imgs, path, device=dev)
+    if not (sal.shape == imgs.shape[:3] and np.isfinite(sal).all()):
+        raise AssertionError(f"matnet_saliency on the trained weights: {sal.shape}")
+    held = {name: mtrain.evaluate(p, dev, lambda s, n=name: log(f"[matnet-train] {n}: {s}"))
+            for name, p in (("trained", path), ("bundled", bundled_weights_path()))}
+    log(f"[matnet-train] held-out IoU, trained {MATNET_STEPS} steps against bundled: scene "
+        f"{held['trained']['scene'][0]:.3f} / {held['bundled']['scene'][0]:.3f}, fresh batch "
+        f"{held['trained']['fresh'][0]:.3f} / {held['bundled']['fresh'][0]:.3f}")
+    log(f"[matnet-train] {card_line()}")
+
+
 def main() -> int:
     import torch
 
@@ -1982,6 +2136,11 @@ def main() -> int:
 
     # 13. the web console runs phase 11's job and serves its splat
     web_phase(OPTION_STEPS)
+
+    # 14. MatNet training at full width
+    t0 = time.time()
+    matnet_train_phase(dev)
+    log(f"[matnet-train] phase 14 in {time.time() - t0:.1f} s")
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

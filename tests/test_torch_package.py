@@ -52,6 +52,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     new |= {"sfm/pose_priors", "sfm/global_mapper", "export/measurement", "export/floorplan",
             "export/objects", "export/mesh", "export/native", "core/meshrender"}
     new |= {"mesh/distributed", "mesh/trainer", "mesh/launch", "web/server", "web/splat_format"}
+    new |= {"matting/train"}
     assert {os.path.join("tpu_splat_torch", *m.split("/")) + ".py" for m in new} <= scanned
     assert len(files) > 40
     for path in files:
@@ -171,6 +172,44 @@ def test_multi_card_launcher_and_served_jobs_default_to_cuda(tmp_path, monkeypat
     assert cpu[5:] == ["--device", "cpu"]
     assert cli_main(cpu[3:]) == 1  # past the device check: the capture does not exist
     assert "FAILED" in capsys.readouterr().err
+
+
+def test_matnet_training_raises_without_gpu_unless_cpu_is_asked_for(tmp_path, monkeypatch):
+    """train_matnet and `python -m tpu_splat_torch.matting.train` default to
+    CUDA and raise without a GPU; with the CPU asked for they train."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for machines without one")
+    import subprocess
+    import sys
+
+    from tpu_splat_torch.matting import train as mtrain
+
+    out = str(tmp_path / "matnet.npz")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mtrain.train_matnet(steps=1, batch=1, out=out)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mtrain.evaluate(out)
+    proc = subprocess.run([sys.executable, "-m", "tpu_splat_torch.matting.train", "--steps", "1",
+                           "--batch", "1", "--out", out], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert not os.path.exists(out)
+    # asked for, the CPU trains (the CLI's held-out evaluation is recorded, not run)
+    seen = []
+    monkeypatch.setattr(mtrain, "evaluate", lambda path, dev, log: seen.append((path, dev)))
+    assert mtrain.main(["--steps", "1", "--batch", "1", "--out", out, "--device", "cpu"]) == 0
+    assert seen == [(out, torch.device("cpu"))]
+    with np.load(out) as z:
+        assert z["head.w"].dtype == np.float16 and z["head.w"].shape == (1, 1, 16, 1)
+
+
+def test_core_exports_match_the_reference():
+    import tpu_splat.core as jcore
+    import tpu_splat_torch.core as tcore
+
+    assert tcore.__all__ == jcore.__all__
+    assert [(m.name, m.value) for m in tcore.CameraModel] == \
+        [(m.name, m.value) for m in jcore.CameraModel]
 
 
 def test_convert_round_trips_params_and_adam_state():

@@ -12,10 +12,21 @@ Plain dataclasses over numpy arrays or torch tensors; the JAX package's flax
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+class CameraModel(enum.Enum):
+    """Supported camera models (subset of COLMAP's model zoo that the pipeline uses)."""
+
+    SIMPLE_PINHOLE = "SIMPLE_PINHOLE"  # f, cx, cy
+    PINHOLE = "PINHOLE"  # fx, fy, cx, cy
+    SIMPLE_RADIAL = "SIMPLE_RADIAL"  # f, cx, cy, k1
+    OPENCV = "OPENCV"  # fx, fy, cx, cy, k1, k2, p1, p2
+
 
 SH_DIM_FOR_DEGREE = {0: 0, 1: 3, 2: 8, 3: 15}
 

@@ -7,7 +7,10 @@ with the package (`weights/matnet.npz`, float16, a byte-identical copy of the
 reference's; the flat HWIO dict carries across with `matnet_state_dict`).
 It serves the `u2net`/`u2net_human_seg` background-removal path when no
 U2Net checkpoint is available (matting/remove.py) and the saliency weighting
-of subject-aware blur scoring (ingest/blur.py).
+of subject-aware blur scoring (ingest/blur.py). `init_params`, `save_params`
+and `matnet_params` carry the reference's training surface: matting/train.py
+trains the net from the reference's seeded init and writes weights that
+either package loads.
 
 The convolutions and group norms are library calls (the reference computes
 them with lax.conv outside any Pallas kernel). Two details carry the
@@ -17,7 +20,11 @@ reference's numbers:
   would pad 1 on each side and shift every encoder level);
 - resizes: `jax.image.resize(..., "bilinear")` antialiases when it
   downsamples, so every resize here that shrinks a dimension passes
-  `antialias=True` (`resize_bilinear`).
+  `antialias=True` (`resize_bilinear`). In training the decoder's
+  upsampling is the product with jax.image.resize's own weight matrices
+  (`_upsample`): its backward is two more products, a fixed order of sums,
+  where F.interpolate's backward on CUDA accumulates with atomics and would
+  make training differ from run to run.
 """
 
 from __future__ import annotations
@@ -45,6 +52,26 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     shrinks = size[0] < x.shape[-2] or size[1] < x.shape[-1]
     return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
                          antialias=shrinks)
+
+
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of jax.image.resize's bilinear (triangle)
+    kernel when n_out >= n_in: half-pixel centres, each row normalised, so
+    the edge rows clamp to the border pixel."""
+    sample = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[:, None] - np.arange(n_in)[None, :]))
+    return w / w.sum(axis=1, keepdims=True)
+
+
+def _upsample(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear upsampling of (N, C, h, w) to `size`: F.interpolate when no
+    gradient will flow back (inference; faster on the card), else two
+    matrix products, whose backward runs in a fixed order."""
+    if tuple(x.shape[-2:]) == tuple(size) or not x.requires_grad:
+        return resize_bilinear(x, size)
+    rows = torch.from_numpy(_resize_matrix(x.shape[-2], size[0])).to(x.device, x.dtype)
+    cols = torch.from_numpy(_resize_matrix(x.shape[-1], size[1]).T.copy()).to(x.device, x.dtype)
+    return rows @ x @ cols
 
 
 def _same_pad(x: torch.Tensor, k: int, stride: int, dilation: int) -> torch.Tensor:
@@ -97,9 +124,44 @@ class MatNet(nn.Module):
         x = self.ctx2(self.ctx1(x))
         for i in range(len(_CH) - 2, -1, -1):
             ref = skips[i]
-            x = resize_bilinear(x, ref.shape[-2:])
+            x = _upsample(x, ref.shape[-2:])
             x = getattr(self, f"dec{i}")(torch.cat([x, ref], dim=1))
         return self.head(x)[:, 0]
+
+
+def init_params(seed: int = 0) -> Dict[str, np.ndarray]:
+    """The reference's He-initialised flat parameter dict (HWIO), from the
+    same numpy draws in the same order."""
+    rng = np.random.default_rng(seed)
+    p: Dict[str, np.ndarray] = {}
+
+    def conv(name, cin, cout, k=3):
+        fan = k * k * cin
+        p[f"{name}.w"] = (rng.standard_normal((k, k, cin, cout))
+                          * np.sqrt(2.0 / fan)).astype(np.float32)
+        p[f"{name}.b"] = np.zeros((cout,), np.float32)
+
+    def norm(name, c):
+        p[f"{name}.s"] = np.ones((c,), np.float32)
+        p[f"{name}.o"] = np.zeros((c,), np.float32)
+
+    cin = 3
+    for i, c in enumerate(_CH):
+        conv(f"enc{i}a", cin, c)
+        norm(f"enc{i}a.n", c)
+        conv(f"enc{i}b", c, c)
+        norm(f"enc{i}b.n", c)
+        cin = c
+    # dilated context block at the bottom (rates 2, 4)
+    conv("ctx1", _CH[-1], _CH[-1])
+    norm("ctx1.n", _CH[-1])
+    conv("ctx2", _CH[-1], _CH[-1])
+    norm("ctx2.n", _CH[-1])
+    for i in range(len(_CH) - 2, -1, -1):
+        conv(f"dec{i}", _CH[i + 1] + _CH[i], _CH[i])
+        norm(f"dec{i}.n", _CH[i])
+    conv("head", _CH[0], 1, k=1)
+    return p
 
 
 def matnet_state_dict(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -117,6 +179,36 @@ def matnet_state_dict(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         else:  # "<block>.n.s" / "<block>.n.o": the block's GroupNorm
             sd[f"{name[:-2]}.norm." + {"s": "weight", "o": "bias"}[leaf]] = t
     return sd
+
+
+def matnet_params(net) -> Dict[str, np.ndarray]:
+    """The inverse of `matnet_state_dict`: a MatNet (or a mapping with its
+    state-dict keys, such as its gradients) as the reference's flat HWIO
+    dict of float32 numpy arrays."""
+    sd = net.state_dict() if isinstance(net, nn.Module) else net
+    params = {}
+    for key, t in sd.items():
+        owner, leaf = key.rsplit(".", 1)  # "<block>.conv", "<block>.norm" or "head"
+        block, part = owner.rsplit(".", 1) if "." in owner else (owner, "conv")
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if part == "norm":
+            params[f"{block}.n." + {"weight": "s", "bias": "o"}[leaf]] = a
+        elif leaf == "weight":
+            params[f"{block}.w"] = a.transpose(2, 3, 1, 0)
+        else:
+            params[f"{block}.b"] = a
+    return params
+
+
+def save_params(params: Dict[str, np.ndarray], path: str) -> None:
+    """The reference's weight file: float16 arrays in a compressed npz under
+    the flat keys. A net cached from `path` is dropped, so the next
+    `matnet_saliency` call reads the new weights."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **{k: np.asarray(v).astype(np.float16)
+                                 for k, v in params.items()})
+    for key in [k for k in _CACHE if k[0] == path]:
+        del _CACHE[key]
 
 
 def load_params(path: str) -> Dict[str, np.ndarray]:
