@@ -70,10 +70,16 @@ the JAX package. Phases, each of which raises on failure:
    cubemap_to_erp, zipped, a job JSON from `generate_splat --spherical
    --preset fast --job-only` with maxSteps 300 and cubeFacesToRemove
    "up,down" (64 views of 256x256; at 6 frames, 96 views, SfM alone took
-   3.5-5 minutes on the H100's host), run by the CLI. Raises unless it
-   completes, times Spherical-To-Perspective, hands SfM as many images as
-   the expansion makes, and writes a .spz that reads back with more than
-   100 gaussians. Prints erp_to_perspective's ms a view;
+   3.5-5 minutes on the H100's host), run by the CLI. The yardstick is the
+   reference's own job on the same capture, recorded on the CPU by
+   scripts/compare_torch_spherical_sfm.py --record (SPHERICAL_REFERENCE).
+   Raises unless the capture is the recorded one, the job completes, times
+   Spherical-To-Perspective, hands SfM as many images as the expansion and
+   the reference make, registers at least the reference's views less 2, puts
+   them where they belong (the camera-centre RMSE of every registered view
+   against its frame's eye, after a similarity alignment, at most max(2 x
+   the reference's, 1% of the eyes' span)), and writes a .spz that reads
+   back with more than 100 gaussians. Prints erp_to_perspective's ms a view;
 10. a pose-prior job: phase 6's frames as PNGs in a .zip beside a
    transforms-in.json of the true poses (ARKit world-to-camera matrices) and
    intrinsics, run by the CLI with the reference's default job but for pose
@@ -141,10 +147,27 @@ the JAX package. Phases, each of which raises on failure:
    whose float16 npz must hold the bundled file's keys and shapes and run
    through load_matnet and matnet_saliency. Prints ms a step on the card,
    host seconds a step making batches, and the held-out IoU of the trained
-   and of the bundled weights.
+   and of the bundled weights;
+15. a multi-video property scan (tests/test_spherical_multivideo_e2e.py's
+   shape at 384x288, the widest at which the reference merges both videos):
+   core/meshrender's capture scene rendered on the host from 22 angles of
+   its orbit and written as two mp4v videos of frames 0-12 and 9-21, run by
+   the CLI as one job (a comma-separated inputPath, every frame kept,
+   exhaustive matching, maxSteps 300). The yardstick is the reference's own
+   job on the same videos, recorded on the CPU by
+   scripts/compare_torch_multivideo.py --record (MULTIVIDEO_REFERENCE).
+   Raises unless the frames the job decoded are the recorded capture, it
+   completes with as many images as the videos gave, registers frames of
+   both videos into one model (more than 13, some of each), within 2 of the
+   reference's count, with a camera-centre RMSE against the true orbit of
+   at most max(2 x the reference's, 1% of the orbit's diameter), every
+   artifact reads back as in phase 7, the .spz holds the trained count
+   (more than 100), and the kernels launched once a step (and the forward
+   once more a scored view). Prints the frames of each video that
+   registered, the component seconds and the launches.
 
 The launch counters are zeroed just before each of the training paths
-(phases 4, 5, 7, 8, 9, 10, 11, 12 and 13) and read just after it; both
+(phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 15) and read just after it; both
 kernels must have launched in each, and in every rank or job process of
 phases 12 and 13 (those start counting from 0, and the processes that
 phases 12(c) and 13 start write their counts to TPU_SPLAT_LAUNCH_DIR as they
@@ -216,6 +239,41 @@ GLOBAL_SFM_REFERENCE = {
     "capture_mean": 0.5228276252746582,
     "capture_values": [0.8705882430076599, 0.4117647111415863, 0.4117647111415863,
                        0.572549045085907, 0.45098039507865906, 0.364705890417099]}
+# phase 9: the reference's --spherical job (training off) on phase 9's ERP
+# capture, and the capture's mean and its values at ERP_PIXELS: `JAX_PLATFORMS=
+# cpu python scripts/compare_torch_spherical_sfm.py --record` (rmse in world
+# units, against the frames' eyes)
+SPHERICAL_FRAMES, SPHERICAL_ERP_HEIGHT = 4, 512
+ERP_PIXELS = [(0, 100, 200, 0), (1, 256, 512, 1), (2, 500, 1000, 2), (3, 30, 700, 0),
+              (0, 400, 20, 1), (3, 300, 900, 2)]
+SPHERICAL_REFERENCE = {
+    "num_images": 64, "registered": 26, "rmse": 0.4460658133029938,
+    "capture_mean": 0.5003737211227417,
+    "capture_values": [0.05098039284348488, 0.2862745225429535, 0.29411765933036804,
+                       0.729411780834198, 0.7058823704719543, 0.6470588445663452]}
+# phase 15: the multi-video property scan of tests/test_spherical_multivideo_e2e.py
+# at twice its width, 384x288 (fx = fy: the test's 175 px at 192 wide,
+# scaled), two mp4v videos of core/meshrender's capture scene on one orbit,
+# frames [:13] and [9:] of 22. The width is the widest of 192, 384, 640 and
+# 1280 at which the reference's job merges both videos (at 384, 24, 26, 26,
+# 25 and 26 frames over RANSAC seeds 0-4, both videos under each; at 640, 13
+# of one video with seed 0; at 1280, 10-23 over seeds 0-4, both in 2).
+MULTIVIDEO_SIZE, MULTIVIDEO_FOCAL, MULTIVIDEO_FPS = (384, 288), 350.0, 10.0
+MULTIVIDEO_ANGLES = np.linspace(0, 1.8 * np.pi, 22)
+MULTIVIDEO_SEGMENTS = (("scan_a.mp4", range(0, 13)), ("scan_b.mp4", range(9, 22)))
+MULTIVIDEO_MAX_IMAGES = 24  # the test's maxNumImages: every frame of both videos
+ORBIT_DIAMETER = 8.0  # meshrender.orbit_w2c's radius 4.0
+# the reference's job on that capture (training off) with the mapper's RANSAC
+# seed 0, as a job runs, and the decoded capture's mean and its values at
+# MULTIVIDEO_PIXELS: `JAX_PLATFORMS=cpu python scripts/compare_torch_multivideo.py
+# --record` (rmse in world units)
+MULTIVIDEO_PIXELS = [(0, 50, 100, 0), (5, 200, 320, 1), (12, 280, 380, 2),
+                     (13, 144, 10, 0), (20, 5, 300, 1), (25, 220, 111, 2)]
+MULTIVIDEO_REFERENCE = {
+    "segments": [13, 13], "registered": 24, "rmse": 1.4584403038024902,
+    "capture_mean": 0.34049031138420105,
+    "capture_values": [0.30588236451148987, 0.7058823704719543, 0.2666666805744171,
+                       0.32156863808631897, 0.38823530077934265, 0.6392157077789307]}
 
 
 def log(msg: str) -> None:
@@ -1081,6 +1139,123 @@ def remove_background_phase(dev, steps: int) -> None:
     log(f"[matting] {card_line()}")
 
 
+def spherical_capture(dev) -> tuple:
+    """Phase 9's capture: testing.room_scene's room seen from SPHERICAL_FRAMES
+    eyes on an arc, as equirectangular frames of SPHERICAL_ERP_HEIGHT rows
+    stitched from cube faces the port rendered on `dev`; (scene, frames)."""
+    scene = room_scene(np.random.default_rng(9))
+    return scene, render_erp(scene, spherical_eyes(), SPHERICAL_ERP_HEIGHT,
+                             SPHERICAL_ERP_HEIGHT, device=dev)
+
+
+def spherical_eyes() -> np.ndarray:
+    """The (SPHERICAL_FRAMES, 3) eyes of phase 9's ERP frames, on an arc."""
+    return np.stack([[1.5 * np.cos(a), -0.3, 1.5 * np.sin(a)]
+                     for a in np.linspace(0.2, 1.6, SPHERICAL_FRAMES)])
+
+
+def spherical_eye_span() -> float:
+    """The distance between phase 9's first and last eye."""
+    eyes = spherical_eyes()
+    return float(np.linalg.norm(eyes[-1] - eyes[0]))
+
+
+def spherical_rmse(poses: dict) -> float:
+    """Camera-centre RMSE, in world units, of a --spherical job's registered
+    views (model_poses) after a similarity alignment: every view of an ERP
+    frame sits at that frame's eye."""
+    from tpu_splat_torch.core.config import SphericalCameraConfig
+    from tpu_splat_torch.spherical.pipeline import view_sequence
+
+    cfg = SphericalCameraConfig(enable=True, cube_faces_to_remove="up,down")
+    eyes = spherical_eyes()[[fi for fi, _, _ in view_sequence(SPHERICAL_FRAMES, cfg)]]
+    viewmats = np.tile(np.eye(4), (len(eyes), 1, 1))
+    viewmats[:, :3, 3] = -eyes  # only the centres are compared
+    return model_rmse(poses, viewmats)
+
+
+def spherical_job_edits(steps: int) -> dict:
+    """What phase 9 changes in the generator's `--spherical --preset fast`
+    job: maxSteps (0 turns training off) and the faces it removes."""
+    training = {"maxSteps": steps} if steps else {"enable": False}
+    return {"training": training, "sphericalCamera": {"cubeFacesToRemove": "up,down"}}
+
+
+def multivideo_capture(directory: str) -> tuple:
+    """Phase 15's capture: core/meshrender's capture scene rendered on the
+    host from MULTIVIDEO_ANGLES of its orbit and written with cv2 as the
+    mp4v videos of MULTIVIDEO_SEGMENTS into `directory`, as
+    tests/test_spherical_multivideo_e2e.py writes them. Returns the videos'
+    paths."""
+    import cv2
+
+    from tpu_splat_torch.core.meshrender import make_capture_scene, orbit_w2c, render_mesh
+
+    mesh = make_capture_scene(7)
+    (w, h), f = MULTIVIDEO_SIZE, MULTIVIDEO_FOCAL
+    frames = [(np.clip(render_mesh(mesh, orbit_w2c(a), f, f, w / 2, h / 2, w, h)[..., ::-1],
+                       0, 1) * 255).astype(np.uint8) for a in MULTIVIDEO_ANGLES]
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for name, idx in MULTIVIDEO_SEGMENTS:
+        paths.append(os.path.join(directory, name))
+        vw = cv2.VideoWriter(paths[-1], cv2.VideoWriter_fourcc(*"mp4v"), MULTIVIDEO_FPS,
+                             (w, h))
+        if not vw.isOpened():
+            raise AssertionError("cv2 cannot write mp4v video")
+        for i in idx:
+            vw.write(frames[i])
+        vw.release()
+    return paths
+
+
+def multivideo_job(paths: list, uuid: str, out: str, steps: int) -> dict:
+    """Phase 15's job: the videos as one comma-separated input, every frame
+    kept (no blur filter), exhaustive matching, maxSteps `steps` (0 turns
+    training off); the reference's defaults otherwise."""
+    return {"uuid": uuid, "inputPath": ",".join(paths), "outputPath": out,
+            "videoProcessing": {"maxNumImages": MULTIVIDEO_MAX_IMAGES},
+            "imageProcessing": {"filterBlurryImages": False},
+            "sfm": {"enable": True, "matchingMethod": "exhaustive"},
+            "training": {"enable": True, "maxSteps": steps} if steps else {"enable": False}}
+
+
+def multivideo_viewmats() -> np.ndarray:
+    """The true world-to-camera matrix of each frame of phase 15's videos, in
+    the order the job merges them."""
+    from tpu_splat_torch.core.meshrender import orbit_w2c
+
+    return np.stack([orbit_w2c(MULTIVIDEO_ANGLES[i]) for _, idx in MULTIVIDEO_SEGMENTS
+                     for i in idx])
+
+
+@contextlib.contextmanager
+def decoded_media(runner):
+    """For the block, `runner`'s Media-To-Images stage (either package's
+    pipeline.runner) also keeps, in the dict it yields, the frames it
+    decoded and the frames each video gave (ctx["segments"])."""
+    fn = runner._media_to_images
+    seen = {}
+
+    def spy(ctx):
+        fn(ctx)
+        seen["images"], seen["segments"] = ctx["images"], ctx.get("segments")
+
+    runner._media_to_images = spy
+    try:
+        yield seen
+    finally:
+        runner._media_to_images = fn
+
+
+def registered_per_segment(frame_ids, segments) -> list:
+    """How many of the registered frame indices fall in each video's run of
+    the merged image set."""
+    ends = np.cumsum(segments)
+    return np.bincount(np.searchsorted(ends, np.asarray(list(frame_ids)), side="right"),
+                       minlength=len(segments)).tolist()
+
+
 def spherical_phase(dev, steps: int) -> None:
     """Phase 9 (see the module docstring): a --spherical job on ERP frames
     that the port rendered."""
@@ -1096,32 +1271,30 @@ def spherical_phase(dev, steps: int) -> None:
     root = os.path.join(OUT_DIR, "spherical")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    n_frames, erp_height = 4, 512
+    n_frames, erp_height = SPHERICAL_FRAMES, SPHERICAL_ERP_HEIGHT
     t0 = time.time()
-    scene = room_scene(np.random.default_rng(9))
-    eyes = np.stack([[1.5 * np.cos(a), -0.3, 1.5 * np.sin(a)]
-                     for a in np.linspace(0.2, 1.6, n_frames)])
-    erps = render_erp(scene, eyes, erp_height, erp_height, device=dev)
+    scene, erps = spherical_capture(dev)
     zip_path = os.path.join(root, "capture.zip")
     zip_frames(erps, zip_path)
     log(f"[spherical] capture: room_scene ({len(scene[0])} gaussians), {n_frames} ERP "
         f"frames {2 * erp_height}x{erp_height} from {erp_height}x{erp_height} cube faces "
         f"rendered by the port, rendered and zipped in {time.time() - t0:.1f} s")
-    job_path, job = generated_job(
-        root, zip_path, ["--spherical", "--preset", "fast"],
-        {"training": {"maxSteps": steps}, "sphericalCamera": {"cubeFacesToRemove": "up,down"}},
-        "spherical")
+    job_path, job = generated_job(root, zip_path, ["--spherical", "--preset", "fast"],
+                                  spherical_job_edits(steps), "spherical")
     cfg = SphericalCameraConfig(enable=True, cube_faces_to_remove="up,down")
     views = view_sequence(n_frames, cfg)
     face = max(erp_height // 2, 256)
 
+    ref = SPHERICAL_REFERENCE
+    check_capture(erps, ERP_PIXELS, ref)
     res, lines, launches, job_s = run_cli_job(job_path, "--spherical job", "spherical_log.txt")
     metrics, timings = res["metrics"], res["timings"]
+    n_img, n_reg = int(metrics["num_images"]), int(metrics["num_registered"])
     if "Spherical-To-Perspective" not in timings:
         raise AssertionError("the job did not time Spherical-To-Perspective")
-    if int(metrics["num_images"]) != len(views):
-        raise AssertionError(f"SfM saw {metrics['num_images']} images, the expansion makes "
-                             f"{len(views)}")
+    if not n_img == len(views) == ref["num_images"]:
+        raise AssertionError(f"SfM saw {n_img} images, the expansion makes {len(views)}, the "
+                             f"reference's {ref['num_images']}")
     n_g = load_spz(res["artifacts"]["spz"]).num_points
     if not (n_g == int(metrics["num_gaussians"]) and n_g > 100):
         raise AssertionError(f"the .spz holds {n_g} gaussians (trained "
@@ -1132,13 +1305,27 @@ def spherical_phase(dev, steps: int) -> None:
     src = torch.as_tensor([fi for fi, _, _ in views])
     view_ms = time_ms(lambda: erp_to_perspective(erp, rots, face, face, 90.0, frames=src),
                       10) / len(views)
+    poses = model_poses(job["outputPath"])
+    rmse, span = spherical_rmse(poses), spherical_eye_span()
+    bar = max(2 * ref["rmse"], 0.01 * span)
     log_job("spherical", res, lines, steps)
     log(f"[spherical] expansion: {len(views)} views of {face}x{face} in "
         f"{timings['Spherical-To-Perspective']:.2f} s; erp_to_perspective {view_ms:.4f} ms a "
-        f"view ({len(views)} in one gather); registered {int(metrics['num_registered'])}/"
-        f"{len(views)}; .spz read back with {n_g} gaussians")
+        f"view ({len(views)} in one gather); registered {n_reg}/{len(views)} (reference "
+        f"{ref['registered']}), views {sorted(poses)}; camera-centre RMSE against the frames' "
+        f"eyes {rmse / span:.5f} of their span (reference {ref['rmse'] / span:.5f}, bar "
+        f"{bar / span:.5f}); .spz read back with {n_g} gaussians")
     log(f"[spherical] CLI run {job_s:.1f} s (launches {launches})")
     log(f"[spherical] {card_line()}")
+    # The mapper is chaotic: the reference's own count on this scene moved
+    # from 26 to 29 views when 48-74 pixels a frame moved one level. Views
+    # beyond the reference's count are held by the centre RMSE, which every
+    # registered view enters; fewer than its count less 2 is a fault.
+    if n_reg < ref["registered"] - 2:
+        raise AssertionError(f"the --spherical job registered {n_reg} views, the reference "
+                             f"{ref['registered']}")
+    if rmse > bar:
+        raise AssertionError(f"camera-centre RMSE {rmse:.4f} > {bar:.4f}")
 
 @contextlib.contextmanager
 def recording(module, name: str, calls: list):
@@ -1415,10 +1602,22 @@ def pose_prior_phase(images: np.ndarray, viewmats: np.ndarray, focal: float, dev
     log(f"[priors] {card_line()}")
 
 
-def capture_stats(images: np.ndarray) -> tuple:
-    """The 8-bit frames' mean and their values at CAPTURE_PIXELS."""
+def capture_stats(images: np.ndarray, pixels=CAPTURE_PIXELS) -> tuple:
+    """The 8-bit frames' mean and their values at `pixels` (frame, y, x,
+    channel)."""
     frames = np.round(np.clip(images, 0, 1) * 255) / 255
-    return float(frames.mean()), [float(frames[p]) for p in CAPTURE_PIXELS]
+    return float(frames.mean()), [float(frames[p]) for p in pixels]
+
+
+def check_capture(images: np.ndarray, pixels, ref: dict) -> None:
+    """Raise unless the frames are the capture `ref` was recorded on: the
+    mean and the values at `pixels` within 1e-4."""
+    mean, values = capture_stats(images, pixels)
+    if abs(mean - ref["capture_mean"]) > 1e-4 or np.abs(
+            np.subtract(values, ref["capture_values"])).max() > 1e-4:
+        raise AssertionError(f"the capture (mean {mean}, {values}) is not the one the "
+                             f"reference's outcome was recorded on ({ref['capture_mean']}, "
+                             f"{ref['capture_values']})")
 
 
 def global_sfm_phase(images: np.ndarray, viewmats: np.ndarray, steps: int) -> None:
@@ -1428,12 +1627,8 @@ def global_sfm_phase(images: np.ndarray, viewmats: np.ndarray, steps: int) -> No
 
     from tpu_splat_torch.sfm import global_mapper
 
-    mean, values = capture_stats(images)
     ref = GLOBAL_SFM_REFERENCE
-    if abs(mean - ref["capture_mean"]) > 1e-4 or np.abs(
-            np.subtract(values, ref["capture_values"])).max() > 1e-4:
-        raise AssertionError(f"the capture (mean {mean}, {values}) is not the one the "
-                             "reference's outcome was recorded on")
+    check_capture(images, CAPTURE_PIXELS, ref)
     root = os.path.join(OUT_DIR, "global_sfm")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1959,6 +2154,78 @@ def matnet_train_phase(dev) -> None:
     log(f"[matnet-train] {card_line()}")
 
 
+def multivideo_phase(steps: int) -> None:
+    """Phase 15 (see the module docstring): a multi-video property scan
+    through the CLI, held to the reference's recorded outcome."""
+    import shutil
+
+    from tpu_splat_torch.core.spz import load_spz
+    from tpu_splat_torch.pipeline import runner
+
+    ref = MULTIVIDEO_REFERENCE
+    root = os.path.join(OUT_DIR, "multivideo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.time()
+    paths = multivideo_capture(root)
+    (w, h), n_views = MULTIVIDEO_SIZE, len(MULTIVIDEO_ANGLES)
+    log(f"[multivideo] capture: core/meshrender's capture scene from {n_views} angles of its "
+        f"orbit, {w}x{h}, fx {MULTIVIDEO_FOCAL}, as two mp4v videos of frames "
+        + " and ".join(f"{idx.start}-{idx.stop - 1}" for _, idx in MULTIVIDEO_SEGMENTS)
+        + f" ({sum(os.path.getsize(p) for p in paths) / 2**20:.2f} MiB), rendered on the "
+        f"host and written in {time.time() - t0:.1f} s")
+    uuid, out = "chip-smoke-multivideo", os.path.join(root, "out")
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:
+        json.dump(multivideo_job(paths, uuid, out, steps), f)
+    with decoded_media(runner) as seen:
+        res, lines, launches, job_s = run_cli_job(job_path, "multi-video job",
+                                                  "multivideo_log.txt")
+    check_capture(seen["images"], MULTIVIDEO_PIXELS, ref)
+    metrics, segments = res["metrics"], seen["segments"]
+    n_img, n_reg = int(metrics["num_images"]), int(metrics["num_registered"])
+    if n_img != sum(segments):
+        raise AssertionError(f"SfM saw {n_img} images, the videos gave {segments}")
+    _, n_pts = check_job_artifacts(root, out, uuid, res, n_img)
+    poses = model_poses(out)
+    per_video = registered_per_segment(poses, segments)
+    rmse = model_rmse(poses, multivideo_viewmats())
+    bar = max(2 * ref["rmse"], 0.01 * ORBIT_DIAMETER)
+    n_g = load_spz(res["artifacts"]["spz"]).num_points
+    n_eval = int(metrics["eval_views"])
+    # the forward renders each held-out view once more; under 16 registered
+    # train_splat scores every (n // 4)-th train view instead
+    n_scored = n_eval or len(range(0, n_reg, max(n_reg // 4, 1)))
+    log_job("multivideo", res, lines, steps)
+    log(f"[multivideo] {n_img} frames (per video {segments}, reference {ref['segments']}); "
+        f"registered {n_reg} (per video {per_video}; reference {ref['registered']}), {n_pts} "
+        f"points; camera-centre RMSE {rmse / ORBIT_DIAMETER:.5f} of the orbit's diameter "
+        f"(reference {ref['rmse'] / ORBIT_DIAMETER:.5f}, bar {bar / ORBIT_DIAMETER:.5f}); "
+        f".spz read back with {n_g} gaussians")
+    log(f"[multivideo] CLI run {job_s:.1f} s (launches {launches}; {steps} steps and "
+        f"{n_scored} views scored)")
+    log(f"[multivideo] {card_line()}")
+    if segments != ref["segments"]:
+        raise AssertionError(f"the videos gave {segments} frames, the reference's "
+                             f"{ref['segments']}")
+    # each video alone holds 13 frames: more than 13, and some of each, is
+    # both videos in one model
+    if not (min(per_video) > 0 and n_reg > 13):
+        raise AssertionError(f"registered {n_reg} frames, per video {per_video}: not both "
+                             "videos in one model")
+    if abs(n_reg - ref["registered"]) > 2:
+        raise AssertionError(f"the multi-video job registered {n_reg}, the reference "
+                             f"{ref['registered']}")
+    if rmse > bar:
+        raise AssertionError(f"camera-centre RMSE {rmse:.4f} > {bar:.4f}")
+    if not (n_g == int(metrics["num_gaussians"]) and n_g > 100):
+        raise AssertionError(f"the .spz holds {n_g} gaussians (trained "
+                             f"{metrics['num_gaussians']}); at least 101 are needed")
+    if launches != {"composite_fwd": steps + n_scored, "composite_bwd": steps}:
+        raise AssertionError(f"launches {launches}: {steps} steps and {n_scored} scored views "
+                             "were expected")
+
+
 def main() -> int:
     import torch
 
@@ -2141,6 +2408,11 @@ def main() -> int:
     t0 = time.time()
     matnet_train_phase(dev)
     log(f"[matnet-train] phase 14 in {time.time() - t0:.1f} s")
+
+    # 15. a multi-video property scan, through the CLI
+    t0 = time.time()
+    multivideo_phase(OPTION_STEPS)
+    log(f"[multivideo] phase 15 in {time.time() - t0:.1f} s")
 
     m1024 = measured[1024]
     log("[kernels] K=1024 full-width: " + json.dumps({

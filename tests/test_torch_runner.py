@@ -603,3 +603,123 @@ def test_pose_prior_colmap_model_job_matches_reference(tmp_path, prior_fakes):
                         for i in range(N)]).astype(np.float32) / 255.0
     diff = np.abs(prior["images"] - raw)
     assert diff.max() > 0.05 and diff[:, 22:26, 30:34].max() < 0.02  # undistorted, not the centre
+
+
+def seeded_videos(directory, lengths=(6, 5), w=W, h=H):
+    """Two mp4v videos of seeded smooth 64x48 frames, as a multi-video
+    property scan uploads them."""
+    import cv2
+
+    rng = np.random.default_rng(14)
+    directory.mkdir(exist_ok=True)
+    paths = []
+    for v, n in enumerate(lengths):
+        paths.append(str(directory / f"scan_{v}.mp4"))
+        vw = cv2.VideoWriter(paths[-1], cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (w, h))
+        assert vw.isOpened()
+        for _ in range(n):
+            img = cv2.resize(rng.uniform(0, 255, (h // 4, w // 4, 3)).astype(np.float32),
+                             (w, h), interpolation=cv2.INTER_CUBIC)
+            vw.write(np.clip(img, 0, 255).astype(np.uint8))
+        vw.release()
+    return paths
+
+
+@pytest.mark.parametrize("form", ["list", "directory"])
+def test_multi_video_ingest_matches_reference(tmp_path, form):
+    """A comma-separated list of videos, or a directory of several, is
+    decoded into one image set, video after video, in both packages."""
+    paths = seeded_videos(tmp_path / "videos")
+    path = ",".join(paths) if form == "list" else str(tmp_path / "videos")
+    out = {}
+    for pkg, comp, runner, config in (("ref", jcomp, jrunner, jconfig),
+                                      ("port", tcomp, trunner, tconfig)):
+        ctx = comp.PipelineContext(cfg=config.job_config_from_json({"inputPath": path}),
+                                   out_dir=str(tmp_path / pkg))
+        runner._resolve_input(ctx)
+        runner._media_to_images(ctx)
+        out[pkg] = ctx
+    got, want = out["port"], out["ref"]
+    assert got["input_kind"] == want["input_kind"] == "multi_video"
+    assert got["input_path"] == want["input_path"] == paths
+    assert got["segments"] == want["segments"] == [6, 5]
+    assert got["images"].shape == (11, H, W, 3) and got["images"].dtype == want["images"].dtype
+    np.testing.assert_array_equal(got["images"], want["images"])
+
+
+@pytest.mark.parametrize("case, code", [("not-a-video", 705), ("missing-video", 710)])
+def test_multi_video_input_errors_match_reference(tmp_path, case, code):
+    """A list with a non-video (705) or a missing video (710) is refused at
+    Resolve-Input with the reference's code, message and job record."""
+    import cv2
+
+    paths = seeded_videos(tmp_path / "videos")
+    other = str(tmp_path / ("frame.png" if case == "not-a-video" else "gone.mp4"))
+    if case == "not-a-video":
+        cv2.imwrite(other, np.zeros((H, W, 3), np.uint8))
+    errors = {}
+    for pkg, config, runner, err in (("ref", jconfig, jrunner, JPipelineError),
+                                     ("port", tconfig, trunner, TPipelineError)):
+        cfg = config.job_config_from_json({"uuid": case, "inputPath": f"{paths[0]},{other}",
+                                           "outputPath": str(tmp_path / pkg)})
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        with pytest.raises(err) as e:
+            runner.run_job(cfg, **kw)
+        store = json.loads((tmp_path / pkg / "jobs" / f"{case}.json").read_text())
+        errors[pkg] = (e.value.code, str(e.value), store["status"], store["code"])
+    assert errors["port"] == errors["ref"] and errors["port"][0] == code
+
+
+def test_multi_video_job_matches_reference(tmp_path, fakes):
+    """A multi-video job completes in both packages through the same stages,
+    and SfM gets the same merged frames."""
+    calls, state = fakes
+    state["n_reg"] = 10  # of the 11 frames of both videos
+    paths = seeded_videos(tmp_path / "videos")
+    res = run_both(tmp_path, {"training": {"maxSteps": 7}}, ",".join(paths))
+    got, want = res["port"], res["ref"]
+    assert got.status == want.status == "Complete"
+    assert list(got.timings) == list(want.timings) == [
+        "Resolve-Input", "Media-To-Images", "Filter-Blurry-Images", "SfM", "Quality-Gate",
+        "Train-Stage1", "Export-Splat", "Rotate-Mirror-SPZ-Export", "Artifact-Export"]
+    assert got.metrics == want.metrics and got.metrics["num_images"] == 11
+    assert got.artifacts.keys() == want.artifacts.keys()
+    np.testing.assert_array_equal(calls["port"]["sfm"]["images"], calls["ref"]["sfm"]["images"])
+
+
+def test_both_options_fail_in_the_reference_and_are_refused_by_the_port(
+        tmp_path, fakes, monkeypatch, capsys):
+    """removeBackground with sphericalCamera: the reference's job keeps one
+    mask per equirectangular frame through the cube-face expansion and fails
+    after it; the port refuses the job before any stage (705), and its
+    generator refuses the flag pair."""
+    from tpu_splat.cli import generate_splat as jgen
+    from tpu_splat_torch.cli import generate_splat as tgen
+
+    zip_path = seeded_zip(str(tmp_path / "capture.zip"), n=3, w=64, h=32)
+    lines = []
+    job = jgen.build_job_json(zip_path, str(tmp_path / "ref"), "fast", remove_background=True,
+                              spherical=True, job_uuid="both")
+    with pytest.raises(JPipelineError):
+        jrunner.run_job(jconfig.job_config_from_json(job), log_fn=lines.append)
+    expanded = next(i for i, s in enumerate(lines)
+                    if s.startswith("[Spherical-To-Perspective] done"))
+    assert any(s.startswith("ERROR") for s in lines[expanded:])
+
+    ran = []
+    monkeypatch.setattr(trunner, "_resolve_input", ran.append)
+    job = tgen.build_job_json(zip_path, str(tmp_path / "port"), "fast", remove_background=True,
+                              spherical=True, job_uuid="both")
+    with pytest.raises(TPipelineError) as e:
+        trunner.run_job(tconfig.job_config_from_json(job), device="cpu")
+    assert e.value.code == 705 and ran == []
+    assert "removeBackground" in str(e.value) and "sphericalCamera" in str(e.value)
+    store = json.loads((tmp_path / "port" / "jobs" / "both.json").read_text())
+    assert store["status"] == "Error" and store["code"] == 705
+
+    out = str(tmp_path / "generated")
+    with pytest.raises(SystemExit) as e:
+        tgen.main([zip_path, "-o", out, "--remove-background", "--spherical", "--job-only"])
+    assert e.value.code == 2 and not os.path.exists(out)
+    err = capsys.readouterr().err
+    assert "--remove-background" in err and "--spherical" in err

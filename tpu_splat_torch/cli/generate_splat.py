@@ -7,7 +7,9 @@ source/generate_splat.py analog, local-first).
 
 Writes a reference-schema job JSON and either runs it with the port's CLI
 (`tpu_splat_torch.cli.main run`, on the GPU; `--device cpu` for the CPU) or,
-with --job-only, just emits the file. Quality presets mirror
+with --job-only, just emits the file. --remove-background and --spherical
+exclude each other: the background masks are made per equirectangular
+frame, and the job runner refuses the pair. Quality presets mirror
 submit_property_job.py:67-143: fast (5k steps / sequential / <=150 images),
 medium (15k / spatial / <=300), high (30k / exhaustive / <=500).
 """
@@ -95,6 +97,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="torch device for the run (default: cuda)")
     args = p.parse_args(argv)
+    if args.remove_background and args.spherical:
+        # the job runner refuses the pair (runner._refuse_unsupported)
+        p.error("--remove-background and --spherical cannot be combined: the background "
+                "masks are made per equirectangular frame, not per cube-face view")
 
     job = build_job_json(
         args.input, args.output, args.preset, args.model,

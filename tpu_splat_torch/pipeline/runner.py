@@ -17,7 +17,8 @@ with pose priors), undistortion, training and the extras (mesh, plane fits)
 run on the job's device (CUDA unless the caller asks for the CPU). With
 enableMultiGpu on a CUDA job and more than one card, training runs
 data-parallel on every card (train_splat(distributed=True)); with one card
-it logs so and trains on it.
+it logs so and trains on it. A job with both removeBackground and
+sphericalCamera is refused (705) before any stage runs.
 
 Quality gates mirror main.py:2031-2087 (frames >= 10 & points >= 50 for
 splatfacto, >= 3/>= 3 otherwise); the delivery orientation dance mirrors
@@ -133,6 +134,7 @@ def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
     store.update(cfg.uuid, status="In-Progress", start=time.time(), config=cfg.uuid)
     t0 = time.time()
     try:
+        _refuse_unsupported(cfg)
         # Component internals (mapper registrations, trainer milestones, ...)
         # log through the pipeline logger; bridge it to log_fn for the job.
         with _bridge_pipeline_logs(log_fn):
@@ -153,6 +155,18 @@ def run_job(cfg: JobConfig, log_fn=None, device=None) -> JobResult:
         artifacts=result.artifacts, metrics=result.metrics, timings=result.timings,
     )
     return result
+
+
+def _refuse_unsupported(cfg: JobConfig):
+    """Refuse, before any stage runs, a job whose options cannot run
+    together. Remove-Background makes one mask per equirectangular frame,
+    and the cube-face expansion replaces those frames with views the masks
+    do not fit, so SfM would index them with view numbers (the reference's
+    runner takes the same path and fails at SfM)."""
+    if cfg.segmentation.remove_background and cfg.spherical_camera.enable:
+        raise PipelineError(705, "segmentation.removeBackground and sphericalCamera.enable "
+                                 "cannot run in one job: the background masks are made per "
+                                 "equirectangular frame, not per cube-face view")
 
 
 # ---------------------------------------------------------------------------
