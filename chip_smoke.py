@@ -6,8 +6,9 @@ Needs one NVIDIA GPU and the CUDA toolkit (nvcc); imports nothing of JAX or of
 the JAX package. Phases, each of which raises on failure:
 
 1. card: name and power limit, as nvidia-smi reports them;
-2. build: compile the compositing kernels from tpu_splat_torch/csrc with nvcc,
-   print each kernel's registers, shared memory and spills, and fail on a spill;
+2. build: compile the compositing and Adam kernels from tpu_splat_torch/csrc
+   with nvcc, print each kernel's registers, shared memory and spills, and
+   fail on a spill;
 3. kernels against their plain PyTorch versions, on the card: the
    check_kernel_parity fixture (near-empty, saturating and never-saturating
    tiles), the same fixture with ragged pair counts (RAGGED_COUNTS: an empty
@@ -19,10 +20,17 @@ the JAX package. Phases, each of which raises on failure:
    max|d| / max|g| <= 5e-5 fed by the plain forward's checkpoints and by
    the kernel's own, two backward launches bit-identical, and every
    gradient slot past its tile's count exactly 0; kernel and plain times,
-   and bounds counted over the real pairs of the reached chunks;
+   and bounds counted over the real pairs of the reached chunks; then the
+   Adam kernel (csrc/adam.cu) against adam_update_plain at splatbench
+   outdoor-3m's layout (2^22 rows of 59 elements, shN's first moment in
+   bf16, 30% of the rows dead), dense and with `visible`: parameters and
+   moments within 1e-6 relative (the count of leaves that agree bit for bit
+   printed), two launches bit-identical, its time, the plain chain's time
+   and its share of its bound (the least bytes over 3.35 TB/s);
 4. full width: train_step on bench.py's workload (2^19 capacity, 400K alive,
    1280x720, SH degree 3, 8 ring views, no random background, K=256), ms/step
-   from CUDA events after a warm-up, finite loss; two identical train_steps
+   from CUDA events after a warm-up, finite loss, one Adam launch a step;
+   two identical train_steps
    from one state must agree bit for bit in every parameter, Adam moment and
    densify accumulator (also run, for the record, with the parent's atomic
    pack-gather backward, which is timed beside the new one);
@@ -167,8 +175,8 @@ the JAX package. Phases, each of which raises on failure:
    registered, the component seconds and the launches.
 
 The launch counters are zeroed just before each of the training paths
-(phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 15) and read just after it; both
-kernels must have launched in each, and in every rank or job process of
+(phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 15) and read just after it; all
+three kernels must have launched in each, and in every rank or job process of
 phases 12 and 13 (those start counting from 0, and the processes that
 phases 12(c) and 13 start write their counts to TPU_SPLAT_LAUNCH_DIR as they
 exit). SfM, the matting nets (their training too) and the extras hold no
@@ -426,6 +434,79 @@ def compare(name, packed, counts, tx, ty, rng, timing_reps=0):
         f"{res['fwd_bound_ms']:.4f} by {res['fwd_bound_by']}); bwd {res['bwd_ms']:.3f} ms "
         f"(plain {res['bwd_plain_ms']:.3f}, bound {res['bwd_bound_ms']:.4f} by "
         f"{res['bwd_bound_by']})")
+    return res
+
+
+ADAM_ROWS = 1 << 22  # splatbench's outdoor-3m capacity, 59 elements a row at SH degree 3
+
+
+def compare_adam(dev) -> dict:
+    """The Adam kernel against adam_update_plain on the card at outdoor-3m's
+    layout, dense and with `visible`; raises unless parameters and moments
+    agree within 1e-6 relative and two launches agree bit for bit. Returns
+    the largest relative error, the kernel's and the plain chain's ms (CUDA
+    events over whole adam_update calls, the bias corrections' small
+    kernels included) and the bound: the least bytes (read parameter,
+    gradient and both moments, write parameter and both moments, one byte a
+    row a mask) over HBM bandwidth."""
+    import torch
+
+    from tpu_splat_torch.gs.optim import AdamState, adam_update_cuda, adam_update_plain
+
+    n = ADAM_ROWS
+    gen = torch.Generator(device=dev).manual_seed(7)
+    widths = {"means": (3,), "scales": (3,), "quats": (4,), "opacities": (),
+              "sh0": (3,), "shN": (15, 3)}
+
+    def draw(shape, scale):
+        return torch.randn((n,) + shape, generator=gen, device=dev) * scale
+
+    params = {k: draw(w, 1.0) for k, w in widths.items()}
+    grads = {k: draw(w, 0.1) for k, w in widths.items()}
+    state = AdamState({k: draw(w, 0.01).to(torch.bfloat16 if k == "shN" else torch.float32)
+                       for k, w in widths.items()},
+                      {k: draw(w, 1e-3).abs() for k, w in widths.items()},
+                      torch.tensor(20000, dtype=torch.int32, device=dev))
+    lrs = {"means": 1.6e-6, "scales": 5e-3, "quats": 1e-3, "opacities": 5e-2,
+           "sh0": 2.5e-3, "shN": 1.25e-4}
+    alive = torch.rand(n, generator=gen, device=dev) < 0.7
+    shown = torch.rand(n, generator=gen, device=dev) < 0.45
+    res = {"max_rel": 0.0}
+    for tag, vis in (("dense", None), ("visible", shown)):
+        def kernel():
+            return adam_update_cuda(params, grads, state, lrs, visible=vis, grad_mask=alive)
+
+        def plain():
+            return adam_update_plain(params, grads, state, lrs, visible=vis, grad_mask=alive)
+
+        (kp, ks), (kp2, ks2), (pp, ps) = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        pairs = [(f"{k} {what}", a, b, c)
+                 for k in widths
+                 for what, a, b, c in (("param", kp[k], kp2[k], pp[k]),
+                                       ("mu", ks.mu[k], ks2.mu[k], ps.mu[k]),
+                                       ("nu", ks.nu[k], ks2.nu[k], ps.nu[k]))]
+        exact = 0
+        for name, a, again, want in pairs:
+            if not torch.equal(a, again):
+                raise AssertionError(f"adam {tag}: two launches differ in {name}")
+            rel = (float((a.float() - want.float()).abs().max())
+                   / max(float(want.float().abs().max()), 1e-30))
+            if not rel <= 1e-6:
+                raise AssertionError(f"adam {tag}: {name} max rel {rel:.3e} > 1e-6")
+            res["max_rel"] = max(res["max_rel"], rel)
+            exact += torch.equal(a, want)
+        del kp, ks, kp2, ks2, pp, ps
+        nbytes = sum(v.numel() * (20 + 2 * state.mu[k].element_size())
+                     for k, v in params.items()) + n * (1 + (vis is not None))
+        ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 5)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[adam] {tag}: {n} rows x 59, kernel against the plain chain max rel "
+            f"{res['max_rel']:.3e}, {exact}/{len(pairs)} tensors bit-identical, two launches "
+            f"bit-identical; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB), {100 * bound_ms / ms:.1f}% of it")
+        if tag == "dense":
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
     return res
 
 
@@ -2221,7 +2302,7 @@ def multivideo_phase(steps: int) -> None:
     if not (n_g == int(metrics["num_gaussians"]) and n_g > 100):
         raise AssertionError(f"the .spz holds {n_g} gaussians (trained "
                              f"{metrics['num_gaussians']}); at least 101 are needed")
-    if launches != {"composite_fwd": steps + n_scored, "composite_bwd": steps}:
+    if launches != {"composite_fwd": steps + n_scored, "composite_bwd": steps, "adam": steps}:
         raise AssertionError(f"launches {launches}: {steps} steps and {n_scored} scored views "
                              "were expected")
 
@@ -2252,15 +2333,16 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # 2. build
-    t0 = time.time()
-    lib_path, build_log = kernel_build.build("composite")
-    log(f"[build] {os.path.relpath(lib_path, ROOT)} in {time.time() - t0:.1f} s")
-    for line in build_log.splitlines():
-        keys = ("entry function", "registers", "spill")
-        if any(key in line for key in keys) or "error" in line.lower():
-            log(f"[build] {line.strip()}")
-        if re.search(r"\b[1-9]\d* bytes spill", line):
-            raise AssertionError(f"a kernel spills registers: {line.strip()}")
+    for lib_name in ("composite", "adam"):
+        t0 = time.time()
+        lib_path, build_log = kernel_build.build(lib_name)
+        log(f"[build] {os.path.relpath(lib_path, ROOT)} in {time.time() - t0:.1f} s")
+        for line in build_log.splitlines():
+            keys = ("entry function", "registers", "spill")
+            if any(key in line for key in keys) or "error" in line.lower():
+                log(f"[build] {line.strip()}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                raise AssertionError(f"a kernel spills registers: {line.strip()}")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(1)
@@ -2282,6 +2364,8 @@ def main() -> int:
                                      width, height, k)
         measured[k] = compare(f"1280x720 K={k}", packed, counts, tx, ty, rng, timing_reps=20)
         del packed, counts
+    torch.cuda.empty_cache()
+    adam_measured = compare_adam(dev)
     torch.cuda.empty_cache()
 
     # 4. full width: bench.py's train_step workload (K=256)
@@ -2324,6 +2408,8 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_steps(lambda i: step(i, state), 3 + n_steps, 5, step_ms)
     launches_full = main_path_launches("full-width train_step")
+    if launches_full["adam"] != launches_full["composite_bwd"]:
+        raise AssertionError(f"launches {launches_full}: one Adam launch a step was expected")
     # two identical steps must agree bit for bit (then again with the
     # parent's atomic pack-gather backward, for the record)
     diffs = repeat_step(step, state, 3 + n_steps)
@@ -2357,7 +2443,9 @@ def main() -> int:
                                   device=dev)
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
-    main_path_launches("train_splat")
+    launches_e2e = main_path_launches("train_splat")
+    if launches_e2e["adam"] != launches_e2e["composite_bwd"]:
+        raise AssertionError(f"launches {launches_e2e}: one Adam launch a step was expected")
     # the refine pass at step 500 must have changed the population
     if not (math.isfinite(metrics5["psnr"]) and cloud.num_points != scene.num_points):
         raise AssertionError(f"train_splat produced {cloud.num_points} gaussians from "
@@ -2433,6 +2521,11 @@ def main() -> int:
          "launches": launches_full["composite_bwd"],
          "max_abs_err": m["bwd_abs"], "ms": m["bwd_ms"], "plain_ms": m["bwd_plain_ms"],
          "bound_ms": m["bwd_bound_ms"], "bound_by": m["bwd_bound_by"], "library_ms": None},
+        {"name": "adam", "route": "cuda", "source": "tpu_splat_torch/csrc/adam.cu",
+         "replaces": None, "launches": launches_full["adam"],
+         "max_rel_err": adam_measured["max_rel"], "ms": adam_measured["ms"],
+         "plain_ms": adam_measured["plain_ms"], "bound_ms": adam_measured["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -125,3 +125,104 @@ def test_kernels_launch_on_the_tensors_card(cuda_device):
     torch.cuda.synchronize(last)
     assert g_k.device == last
     assert float((g_k - g_p).abs().max()) / float(g_p.abs().max()) <= 5e-5
+
+
+LRS = {"means": 1.6e-4, "scales": 5e-3, "quats": 1e-3, "opacities": 5e-2, "sh0": 2.5e-3,
+       "shN": 1.25e-4}
+
+
+def adam_case(rng, n, sh_rest, device, pad=0):
+    """Leaves of n rows (shN with sh_rest coefficient sets), their gradients
+    and an Adam state three steps in, with nonzero moments (shN's first in
+    bf16). With pad, every tensor is the last n rows of one with `pad` more,
+    so that none starts on a 16-byte boundary."""
+    from tpu_splat_torch.gs.optim import AdamState
+
+    widths = {"means": (3,), "scales": (3,), "quats": (4,), "opacities": (),
+              "sh0": (3,), "shN": (sh_rest, 3)}
+
+    def draw(shape, scale=1.0, dtype=torch.float32, positive=False):
+        v = rng.standard_normal((n + pad,) + shape).astype(np.float32) * scale
+        return torch.from_numpy(np.abs(v) if positive else v).to(device, dtype)[pad:]
+
+    params = {k: draw(w) for k, w in widths.items()}
+    grads = {k: draw(w, 0.1) for k, w in widths.items()}
+    mu = {k: draw(w, 0.01, torch.bfloat16 if k == "shN" else torch.float32)
+          for k, w in widths.items()}
+    nu = {k: draw(w, 1e-3, positive=True) for k, w in widths.items()}
+    alive = torch.from_numpy(rng.uniform(size=n + pad) < 0.7).to(device)[pad:]
+    visible = torch.from_numpy(rng.uniform(size=n + pad) < 0.5).to(device)[pad:]
+    count = torch.tensor(3, dtype=torch.int32, device=device)
+    return params, grads, AdamState(mu, nu, count), alive, visible
+
+
+def max_rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "visible", "empty_shN", "unaligned"])
+def test_adam_kernel_matches_plain_chain(cuda_device, case):
+    """Two successive steps of the kernel against adam_update_plain on the
+    card, with the alive mask, over 1001 rows (no leaf a multiple of the
+    8-element group): parameters and both moments (shN's first in bf16)
+    within 1e-6 relative, two launches on one input bit-identical, one launch
+    a step, the inputs left as they were. `visible` restricts the update,
+    `empty_shN` is a degree-0 cloud, and `unaligned` takes row slices that
+    start off a 16-byte boundary, as a rank's shard of the leaves may."""
+    from tpu_splat_torch.gs.optim import adam_update, adam_update_cuda, adam_update_plain
+
+    rng = np.random.default_rng(4)
+    params, grads, state, alive, visible = adam_case(
+        rng, 1001, 0 if case == "empty_shN" else 15, cuda_device,
+        pad=1 if case == "unaligned" else 0)
+    vis = visible if case == "visible" else None
+    kp, ks, pp, ps = params, state, params, state
+    for step in range(2):
+        g = grads if step == 0 else {k: -0.5 * v for k, v in grads.items()}
+        before = {k: v.clone() for k, v in kp.items()}
+        launches = cr.LAUNCHES["adam"]
+        kp1, ks1 = adam_update(kp, g, ks, LRS, visible=vis, grad_mask=alive)
+        again, again_s = adam_update_cuda(kp, g, ks, LRS, visible=vis, grad_mask=alive)
+        assert cr.LAUNCHES["adam"] == launches + 2
+        pp, ps = adam_update_plain(pp, g, ps, LRS, visible=vis, grad_mask=alive)
+        for k in LRS:
+            assert torch.equal(kp[k], before[k]), k
+            assert torch.equal(kp1[k], again[k]) and torch.equal(ks1.nu[k], again_s.nu[k]), k
+            assert torch.equal(ks1.mu[k], again_s.mu[k]), k
+            assert ks1.mu[k].dtype == ps.mu[k].dtype, k
+            if kp1[k].numel():
+                assert max_rel(kp1[k], pp[k]) <= 1e-6, k
+                assert max_rel(ks1.mu[k], ps.mu[k]) <= 1e-6, k
+                assert max_rel(ks1.nu[k], ps.nu[k]) <= 1e-6, k
+        assert int(ks1.count) == int(ps.count) == 4 + step
+        kp, ks = kp1, ks1
+    if vis is not None:
+        hidden = ~visible
+        for k in LRS:
+            assert torch.equal(kp[k][hidden], params[k][hidden]), k
+            assert torch.equal(ks.mu[k][hidden], state.mu[k][hidden]), k
+
+
+@pytest.mark.cuda
+def test_adam_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A non-contiguous or wrong-dtype gradient, a moment of another type, a
+    learning rate on the device and a mask of another length raise before
+    any launch."""
+    from tpu_splat_torch.gs.optim import adam_update_cuda
+
+    params, grads, state, alive, _ = adam_case(np.random.default_rng(5), 64, 15, cuda_device)
+    launches = cr.LAUNCHES["adam"]
+    bad = [
+        ({**grads, "means": grads["means"].t().contiguous().t()}, state, LRS, alive),
+        ({**grads, "scales": grads["scales"].double()}, state, LRS, alive),
+        (grads, state._replace(mu={**state.mu, "quats": state.mu["quats"].half()}), LRS,
+         alive),
+        (grads, state, {**LRS, "sh0": torch.tensor(1e-3, device=cuda_device)}, alive),
+        (grads, state, LRS, alive[:-1]),
+    ]
+    for g, st, lrs, mask in bad:
+        with pytest.raises(ValueError):
+            adam_update_cuda(params, g, st, lrs, grad_mask=mask)
+    assert cr.LAUNCHES["adam"] == launches

@@ -4,6 +4,7 @@ packages through tpu_splat_torch.convert."""
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 import torch
 
@@ -60,10 +61,14 @@ def test_ssim_and_image_loss_match_reference():
                                                           torch.from_numpy(b)))) <= 1e-4
 
 
-def test_adam_update_matches_reference():
+@pytest.mark.parametrize("masked", [False, True], ids=["every_row", "grad_mask"])
+def test_adam_update_matches_reference(masked):
     """Two selective-Adam steps from nonzero moments. Parameters and the f32
     second moment to 1e-6 of scale (f32 op order); the bf16 shN first moment
-    to one bf16 ulp (an f32 last-bit difference can flip its rounding)."""
+    to one bf16 ulp (an f32 last-bit difference can flip its rounding). With
+    grad_mask the reference gets the gradients zeroed on dead rows, as its
+    trainer does, and the port's masked update equals its torch.where then
+    update bit for bit."""
     rng = np.random.default_rng(1)
     n = 96
     p = random_params(rng, n)
@@ -74,17 +79,34 @@ def test_adam_update_matches_reference():
     lrs = {"means": 1e-3, "scales": 5e-3, "quats": 1e-3, "opacities": 5e-2,
            "sh0": 2.5e-3, "shN": 1.25e-4}
     visible = rng.uniform(size=n) < 0.7
+    if masked:
+        grads_j = {k: jnp.where(p["alive"].reshape((-1,) + (1,) * (v.ndim - 1)), v, 0.0)
+                   for k, v in grads.items()}
+    else:
+        grads_j = grads
     jupd = jax.jit(lambda pp, st, g: joptim.adam_update(pp, g, st, lrs, visible=visible))
-    jp1, st1 = jupd(jp, state, grads)
-    jp2, st2 = jupd(jp1, st1, {k: -0.5 * v for k, v in grads.items()})
+    jp1, st1 = jupd(jp, state, grads_j)
+    jp2, st2 = jupd(jp1, st1, {k: -0.5 * v for k, v in grads_j.items()})
 
     tp = convert.params_to_torch(p, "cpu")
     tstate = toptim.adam_init(tp)
     tg = convert.params_to_torch({k: np.asarray(v) for k, v in grads.items()}, "cpu")
     vis = torch.from_numpy(visible)
-    tp1, ts1 = toptim.adam_update(tp, tg, tstate, lrs, visible=vis)
+    mask = tp["alive"] if masked else None
+    tp1, ts1 = toptim.adam_update(tp, tg, tstate, lrs, visible=vis, grad_mask=mask)
     tp2, ts2 = toptim.adam_update(tp1, {k: -0.5 * v for k, v in tg.items()}, ts1, lrs,
-                                  visible=vis)
+                                  visible=vis, grad_mask=mask)
+    if masked:
+        def where(g):
+            return {k: torch.where(mask.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                                   torch.zeros_like(v)) for k, v in g.items()}
+
+        wp1, ws1 = toptim.adam_update(tp, where(tg), tstate, lrs, visible=vis)
+        wp2, ws2 = toptim.adam_update(wp1, where({k: -0.5 * v for k, v in tg.items()}), ws1,
+                                      lrs, visible=vis)
+        for k in grads:
+            assert torch.equal(tp2[k], wp2[k]), k
+            assert torch.equal(ts2.mu[k], ws2.mu[k]) and torch.equal(ts2.nu[k], ws2.nu[k]), k
 
     assert ts2.mu["shN"].dtype == torch.bfloat16 and st2.mu["shN"].dtype == jnp.bfloat16
     assert int(ts2.count) == int(st2.count) == 2

@@ -41,8 +41,9 @@ TERM_THRESHOLD = 1e-4
 ALPHA_THRESHOLD = 1.0 / 255.0
 MAX_ALPHA = 0.999
 
-# Kernel launches per wrapper; each wrapper adds one where it launches.
-LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0}
+# Kernel launches per wrapper; each wrapper adds one where it launches
+# (optim.adam_update_cuda adds to "adam").
+LAUNCHES = {"composite_fwd": 0, "composite_bwd": 0, "adam": 0}
 
 
 def reset_launch_counts() -> None:

@@ -228,10 +228,6 @@ def train_step(
              for x, g in zip(inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
 
     with torch.no_grad():
-        param_grads = {
-            k: torch.where(alive.reshape((-1,) + (1,) * (g.ndim - 1)), g, torch.zeros_like(g))
-            for k, g in zip(names, grads)
-        }
         means2d_grad = grads[len(names)]
         # radii for visibility, from the undelta'd pose as in the reference
         proj = project_gaussians(trainable["means"], trainable["scales"], trainable["quats"],
@@ -240,8 +236,8 @@ def train_step(
         lrs = _lr_tree(cfg, scene_scale, step, cfg.max_steps)
         visible = (radii > 0) if cfg.selective_adam else None
         new_trainable, adam_state = adam_update(
-            {k: v.detach() for k, v in trainable.items()}, param_grads, adam_state, lrs,
-            visible=visible)
+            {k: v.detach() for k, v in trainable.items()}, dict(zip(names, grads)), adam_state,
+            lrs, visible=visible, grad_mask=alive)
         new_params = dict(new_trainable)
         new_params["alive"] = alive
         dstate = accumulate_gradients(dstate, means2d_grad, radii, width, height)

@@ -204,12 +204,10 @@ def make_distributed_train_step(mesh: Mesh, cfg, width: int, height: int,
                  for x, g in zip(inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
 
         with torch.no_grad():
-            # average over the data axis, then zero the dead slots
+            # average over the data axis; Adam zeroes the dead slots' gradients
             loss = mesh.mean(loss.detach(), "data")
             pgrads = {k: mesh.mean(g, "data") for k, g in zip(names, grads)}
             g2d = mesh.mean(grads[len(names)], "data")
-            pgrads = {k: torch.where(alive.reshape((-1,) + (1,) * (g.ndim - 1)), g,
-                                     torch.zeros_like(g)) for k, g in pgrads.items()}
 
             # visibility for densify accumulation: any view of the batch
             radii = torch.stack([
@@ -223,7 +221,7 @@ def make_distributed_train_step(mesh: Mesh, cfg, width: int, height: int,
             lrs = _lr_tree(cfg, scene_scale, int(step), cfg.max_steps)
             shard = {k: params[k] for k in adam.mu}
             new_shard, adam = adam_update(shard, {k: mesh.shard_rows(pgrads[k]) for k in shard},
-                                          adam, lrs)
+                                          adam, lrs, grad_mask=mesh.shard_rows(alive))
             new_params = dict(params)
             new_params.update(new_shard)
             dstate = accumulate_gradients(dstate, mesh.shard_rows(g2d), mesh.shard_rows(radii),
