@@ -11,9 +11,11 @@ last one is finished and counted. With trace, one more segment is timed
 without the profiler (refine passes timed one by one), one is profiled for
 the device's activity alone, and one for the host's operations as well.
 
-The plain reference that the output check follows is the module of
-`reference/` that the configuration file names under `reference`; every
-metric, end-to-end or per-layer, is read by `metrics/<name>.py`.
+The plain reference is the module of `reference/` that the configuration
+file names under `reference`: the output check follows its `follow`, and a
+traced run counts the snapshot's work (bytes and operations of the
+kernels, of a step) by its `work`. Every metric, end-to-end or per-layer,
+is read by `metrics/<name>.py`.
 """
 
 from __future__ import annotations
@@ -27,10 +29,9 @@ from typing import Dict, List, Optional
 
 import torch
 
-from splatbench import check, counts, trace as trace_mod
+from splatbench import check, trace as trace_mod
 from splatbench.manifest import Cell, metric_reader, reference
-from splatbench.reference import render as R
-from splatbench.scene import LEAVES, make_scene
+from splatbench.scene import make_scene
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_splat")
 VIEWS_PER_STEP = 1  # one process on one card steps one view at a time
@@ -41,19 +42,38 @@ def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
+def _leaves(tree: dict, prefix: str = "") -> Dict[str, object]:
+    """A nested settings block as leaves under dotted names."""
+    out: Dict[str, object] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_leaves(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = value
+    return out
+
+
 def program_config(cell: Cell):
-    """The program's TrainConfig for the model, checked against the
-    configuration file's statement of it."""
+    """The program's TrainConfig for the model, held leaf by leaf against the
+    configuration file's `train`: a stated leaf has the program's value, and
+    a leaf the file leaves unstated is at the dataclass default. So a file
+    states every setting its model changes from the default."""
     from tpu_splat_torch.gs.trainer import TrainConfig
 
-    cfg = TrainConfig.for_model(cell.config["model"])
-    actual = json.loads(json.dumps(dataclasses.asdict(cfg)))
-    stated = cell.config["train"]
-    diff = {k: (stated[k], actual.get(k)) for k in stated if actual.get(k) != stated[k]}
-    missing = sorted(set(actual) - set(stated))
-    if diff or missing:
-        raise ValueError(f"TrainConfig.for_model({cell.config['model']!r}) is not the "
-                         f"configuration file's: differs {diff}, unstated {missing}")
+    model = cell.config["model"]
+    cfg = TrainConfig.for_model(model)
+
+    def flat(c):
+        return _leaves(json.loads(json.dumps(dataclasses.asdict(c))))
+
+    actual, default, stated = flat(cfg), flat(type(cfg)()), _leaves(cell.config["train"])
+    differs = {k: (v, actual[k]) for k, v in stated.items() if k in actual and actual[k] != v}
+    missing = sorted(set(stated) - set(actual))
+    unstated = {k: v for k, v in actual.items() if k not in stated and v != default.get(k)}
+    if differs or missing or unstated:
+        raise ValueError(f"TrainConfig.for_model({model!r}) is not the configuration "
+                         f"file's: differs {differs} (file, program); missing from the "
+                         f"program {missing}; unstated and not the default {unstated}")
     return cfg
 
 
@@ -94,32 +114,6 @@ class Program:
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-@torch.no_grad()
-def work_counts(scene, tc: dict, tr: dict, k: int) -> dict:
-    """The work of the snapshot's step, averaged over all training views, by
-    the plain projection, binning and compositing (tile capacity k): pairs
-    and bytes of a compositing launch, the step's f32 operations, the
-    visible share."""
-    p = scene.params
-    alive = int(p["alive"].sum())
-    tot: Dict[str, float] = {}
-    visible = 0.0
-    for v in range(scene.images.shape[0]):
-        out = R.render(*(p[x] for x in LEAVES), scene.viewmats[v], scene.intrinsics[v],
-                       tr["width"], tr["height"], tc["sh_degree"], k,
-                       antialiased=tc["antialiased"], alive=p["alive"])
-        for key, val in counts.composite_work(out.counts, out.reached, k).items():
-            tot[key] = tot.get(key, 0.0) + val
-        visible += float((out.radii > 0).sum()) / alive
-    n = scene.images.shape[0]
-    work = {key: val / n for key, val in tot.items()}
-    elements = sum(int(p[x][0].numel()) for x in LEAVES)
-    work["step_ops"] = counts.step_ops(alive, elements, tr["width"] * tr["height"],
-                                       work["pairs"], tc["sh_degree"])
-    work["visible_share"] = visible / n
-    return work
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, started: float,
@@ -192,7 +186,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, started: float,
         torch.cuda.empty_cache()
 
     if trace:
-        ctx["work"] = work_counts(scene, tc, tr, k_tile)
+        ctx["work"] = ref_mod.work(scene, tc, tr, k_tile)
     ref = ref_mod.follow(scene.params, scene.images, scene.viewmats, scene.intrinsics,
                          scene.scene_scale, tc, tr["check_step"], tr["check_steps"], seed)
     numbers = check.compare(out, ref, scene.params, check.ends_on_refine(tc, tr))

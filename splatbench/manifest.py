@@ -12,8 +12,10 @@ sits in a file of its own, found by its name in BENCHMARK.json:
   None where it finds nothing to read, for end-to-end and per-layer metrics;
 - launchers/<launcher>.py: `run(cell, seed, seconds, trace, started,
   clock)`, which runs one cell once;
-- reference/<reference>.py: the plain reference the output check follows,
-  with `follow(...)` and `k_tile(train, step)`.
+- reference/<reference>.py: the plain reference, with `follow(...)`, the
+  steps the output check follows, `k_tile(train, step)`, and
+  `work(scene, train, traffic, k)`, the snapshot's work a traced run reads
+  the kernels' roofline shares and the step's share of the peak against.
 """
 
 from __future__ import annotations

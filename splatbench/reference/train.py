@@ -3,7 +3,9 @@ its gradients by autograd through `render.render`, Adam over the parameter
 leaves (selective where the configuration says so, shN's first moment kept
 in bf16), the per-view camera-pose Adam, the densify accumulators, and the
 refine pass (duplicate, split, prune into dead slots) with its opacity reset
-and capacity growth.
+and capacity growth; and `work`, what a step on the snapshot costs by the
+same equations, which the kernels' roofline shares and the step's share of
+the peak are read against.
 
 The settings come from the configuration file's `train` block, which states
 the job's training configuration; nothing here reads the program.
@@ -17,6 +19,7 @@ from typing import Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from splatbench import counts
 from splatbench.reference import render as R
 
 LEAVES = ("means", "scales", "quats", "opacities", "sh0", "shN")
@@ -313,3 +316,29 @@ def follow(params, images, viewmats, intrinsics, scene_scale: float, tc: dict,
             first = s
     return Followed(losses, first, s,
                     after_chunk(s, tc, gen, scene_scale, start_step + n_steps))
+
+
+@torch.no_grad()
+def work(scene, tc: dict, tr: dict, k: int) -> dict:
+    """The work of the snapshot's step, averaged over all training views, by
+    the plain projection, binning and compositing (tile capacity k): pairs
+    and bytes of a compositing launch, the step's f32 operations, the
+    visible share."""
+    p = scene.params
+    alive = int(p["alive"].sum())
+    tot: Dict[str, float] = {}
+    visible = 0.0
+    for v in range(scene.images.shape[0]):
+        out = R.render(*(p[x] for x in LEAVES), scene.viewmats[v], scene.intrinsics[v],
+                       tr["width"], tr["height"], tc["sh_degree"], k,
+                       antialiased=tc["antialiased"], alive=p["alive"])
+        for key, val in counts.composite_work(out.counts, out.reached, k).items():
+            tot[key] = tot.get(key, 0.0) + val
+        visible += float((out.radii > 0).sum()) / alive
+    n = scene.images.shape[0]
+    work = {key: val / n for key, val in tot.items()}
+    elements = sum(int(p[x][0].numel()) for x in LEAVES)
+    work["step_ops"] = counts.step_ops(alive, elements, tr["width"] * tr["height"],
+                                       work["pairs"], tc["sh_degree"])
+    work["visible_share"] = visible / n
+    return work

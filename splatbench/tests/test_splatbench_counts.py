@@ -4,6 +4,7 @@ on a synthetic timeline."""
 import pytest
 import torch
 
+from conftest import CELLS, ROOT, tiny
 from splatbench import counts, trace
 
 
@@ -72,3 +73,26 @@ def test_idle_share_reads_the_device_only_trace():
     host = trace.reduce((0, 400), [trace.Interval(10, 30, "a")], [])  # a stretched window
     value = metric_reader("device_idle_pct").read({"device": dev, "trace": host})
     assert value == pytest.approx(70.0)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_reference_counts_the_snapshots_work(cpu_torch, cell):
+    """reference/train.work on the tiny scene: the keys the harness and the
+    metric readers read, the pairs' operations at 30 and 66 a pair, and a
+    step's operations at least those of its pairs."""
+    from splatbench.manifest import load_cell, reference
+    from splatbench.scene import make_scene
+
+    c = tiny(load_cell(cell, ROOT))
+    tr, tc = c.traffic, c.config["train"]
+    ref = reference(c.config["reference"])
+    k = ref.k_tile(tc, tr["snapshot_step"])
+    work = ref.work(make_scene(tr, k, 3_000_000_017, torch.device("cpu")), tc, tr, k)
+    assert set(work) == {"pairs", "fwd_bytes", "bwd_bytes", "fwd_ops", "bwd_ops",
+                         "step_ops", "visible_share"}
+    assert work["pairs"] > 0 and 0.0 < work["visible_share"] <= 1.0
+    assert work["fwd_ops"] == pytest.approx(counts.FWD_OPS_PER_PAIR * work["pairs"])
+    assert work["bwd_ops"] == pytest.approx(counts.BWD_OPS_PER_PAIR * work["pairs"])
+    assert work["fwd_bytes"] > 0 and work["bwd_bytes"] > work["fwd_bytes"]
+    assert work["step_ops"] > work["pairs"] * (counts.FWD_OPS_PER_PAIR
+                                               + counts.BWD_OPS_PER_PAIR)

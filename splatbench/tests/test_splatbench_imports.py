@@ -35,15 +35,30 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not set(_imported_tops(path)) & FORBIDDEN
 
 
+def _benchmark_imports(path):
+    """The benchmark's own modules a file imports, by dotted name."""
+    tree = ast.parse(open(path).read(), path)
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom) and (n.module or "").startswith("splatbench"):
+            if n.module == "splatbench":
+                yield from (f"splatbench.{a.name}" for a in n.names)
+            else:
+                yield n.module
+
+
 @pytest.mark.parametrize("path", sorted(p for p in _modules() if "/reference/" in p),
                          ids=os.path.basename)
 def test_the_reference_imports_nothing_of_the_program(path):
     assert set(_imported_tops(path)) <= {"__future__", "math", "typing", "numpy", "torch",
                                          "splatbench"}
-    tree = ast.parse(open(path).read(), path)
-    inside = [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and (n.module or "").startswith("splatbench")]
-    assert all(m.startswith("splatbench.reference") for m in inside), inside
+    # of the benchmark, only the reference and the yardstick's arithmetic
+    inside = list(_benchmark_imports(path))
+    assert all(m.startswith("splatbench.reference") or m == "splatbench.counts"
+               for m in inside), inside
+
+
+def test_the_yardstick_imports_nothing():
+    assert set(_imported_tops(os.path.join(BENCH, "counts.py"))) <= {"__future__"}
 
 
 def test_forbidden_modules_compares_whole_names(monkeypatch):
